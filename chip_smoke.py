@@ -6,16 +6,32 @@ Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit.  Each phase prints one JSON line; any failure raises and ends
 the run with a non-zero exit:
 
-1. device   the card, its power limit, and TF32 turned off for fp32 matmuls;
-2. build    the CUDA kernel compiled from ``internevo_tpu_torch/csrc``;
-3. kernel   the splash-attention kernel against its plain version at the
-            InternLM-7B scoring shapes, bf16 on the card, with timings;
-4. scoring  InternLM-7B (``configs/7B_sft.py``, full width and depth, random
-            weights from a seed) scores two packed rows of 4096 tokens
-            through ``make_eval_step``; the kernel must launch once per layer,
-            and the loss is held against a forward with the plain attention;
-5. serving  the same model answers 5 generation requests through
-            ``SequenceGenerator`` (4 greedy, 1 sampled batch of 4 rows).
+1. device        the card, its power limit, and TF32 turned off for fp32
+                 matmuls;
+2. build         the CUDA kernels compiled from ``internevo_tpu_torch/csrc``
+                 (one nvcc per source, in parallel) and the Triton AdamW
+                 kernel JIT-compiled, with registers and spills;
+3. kernel        the splash forward kernel against its plain version at the
+                 InternLM-7B scoring shapes, bf16 on the card, with timings;
+4. scoring       InternLM-7B (``configs/7B_sft.py``, full width and depth,
+                 random weights from a seed) scores two packed rows of 4096
+                 tokens through ``make_eval_step``; the kernel must launch once
+                 per layer, and the loss is held against a forward with the
+                 plain attention;
+5. serving       the same model answers 5 generation requests through
+                 ``SequenceGenerator`` (4 greedy, 1 sampled batch of 4 rows);
+6. kernel_bwd    the two splash backward kernels against ``plain_backward``
+                 at the training shape (one packed row of 4096 tokens), five
+                 cases and one planted fault the check must catch, with
+                 timings;
+7. kernel_adamw  the fused AdamW kernel against its plain version at 7B leaf
+                 shapes, with timings;
+8. train_grads   every param grad of a 2-layer model at 7B width through the
+                 kernels, against the same model with the plain attention;
+9. training      the 7B_sft configuration cut to 8 layers takes 4 steps
+                 through ``initialize_*`` and ``Trainer.execute_schedule``
+                 (``tools/profile_step.py::train_setup``); launches, finite
+                 norms and a falling loss are held.
 
 Then a ``{"kernels": [...]}`` line and, last, the run's verdict line.  With no
 CUDA device the script exits non-zero before printing any result.  It imports
@@ -24,26 +40,31 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from internevo_tpu_torch.apis.inference import (SequenceGenerator, init_kv_cache, model_decode_step,
                                                  top_k_top_p_filtering)
 from internevo_tpu_torch.core.config import Config
 from internevo_tpu_torch.core.scheduler.no_pipeline import make_eval_step
 from internevo_tpu_torch.models.base import attention_block, block_forward
-from internevo_tpu_torch.ops.cuda import build
+from internevo_tpu_torch.ops.cuda import build, fused_adamw
 from internevo_tpu_torch.ops.cuda import splash_attention as splash
 from internevo_tpu_torch.ops.fused_ce import fused_norm_head_ce
+from internevo_tpu_torch.solver.optimizer import tree_leaves
+from internevo_tpu_torch.tools.profile_step import packed_batch, packed_segments, train_config, train_setup
 from internevo_tpu_torch.train.pipeline import initialize_model
-from internevo_tpu_torch.utils.common import device_peak_tflops, get_megatron_flops
+from internevo_tpu_torch.utils.common import device_peak_bandwidth, device_peak_tflops, get_megatron_flops
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -63,27 +84,39 @@ LOSS_GAP = 1e-2
 # points and the difference compounds through 32 random-weight layers: 1.3e-2
 # measured on an H100 (seed 0); the bound leaves ~4x room for other seeds
 PREFILL_REL_RMS = 5e-2
+# splash backward kernels vs plain_backward, bf16 on the card: elementwise as
+# the forward's out (both round P∘drop and dS to bf16 at the same points, from
+# fp32 scores summed in another order, then round each grad once).  With these
+# inputs a typical |dq| or |dk| is a few 1e-2, so the elementwise bound alone
+# is loose; the relative L2 of each grad is what holds: sound kernels read
+# 7.7e-5 to 2.0e-4 on an H100, and the bound is 10x the largest.  A window
+# one q tile short (the planted fault) reads far above it
+GRAD_RTOL = GRAD_ATOL = 1.6e-2
+BWD_REL_L2 = 2e-3
+# fused AdamW vs its plain version: m, v, master within 1e-6 of each tensor's
+# largest magnitude (the same fp32 expression; the kernel's compiler contracts
+# multiply-adds, the plain version's separate kernels do not: 1e-7 measured).
+# The bf16 param is exactly the rounding of the kernel's own master, and
+# within one bf16 ulp of the plain param plus that master bound (a master
+# near 0 that moves by 1e-9 crosses many ulps of its own tiny magnitude)
+ADAMW_REL = 1e-6
+# param grads of the kernel path vs plain attention under autograd: relative
+# L2 per leaf, the bf16 grad level of doc/perf_notes.md:287-289
+GRAD_REL_L2 = 2e-2
+TRAIN_STEPS = 4              # training: tools/profile_step.py::train_setup's model and batch
+TRAIN_B, TRAIN_S = 1, 4096   # kernel_bwd / train_grads: one packed row
+HEADS, HEAD_DIM = 32, 128     # InternLM-7B attention
+# kernel_adamw: 7B leaves (shape, skip flag, param dtype); the embedding leaf
+# is timed
+BF16, FP32 = torch.bfloat16, torch.float32
+ADAMW_CASES = {"wqkv": ((12288, 4096), 0.0, BF16), "w1": ((11008, 4096), 0.0, BF16),
+               "embedding": ((103168, 4096), 0.0, BF16), "norm1": ((4096,), 0.0, BF16),
+               "norm_fp32": ((4096,), 0.0, FP32), "wqkv_skip": ((12288, 4096), 1.0, BF16)}
+ADAMW_TIMED = "embedding"
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def packed_segments(B, S, max_len, pad, rng):
-    """Cut-packing: contiguous runs of at most max_len, positions restart per
-    run, the last ``pad`` tokens are segment 0."""
-    seg = np.zeros((B, S), np.int32)
-    pos = np.zeros((B, S), np.int32)
-    for b in range(B):
-        p, sid = 0, 1
-        while p < S - pad:
-            n = min(int(rng.randint(64, max_len + 1)), S - pad - p)
-            seg[b, p:p + n] = sid
-            pos[b, p:p + n] = np.arange(n)
-            p += n
-            sid += 1
-        pos[b, S - pad:] = np.arange(pad)
-    return seg, pos
 
 
 def attention_flops(seg: np.ndarray, heads: int, head_dim: int) -> float:
@@ -111,6 +144,27 @@ def cuda_time_ms(fn, warmup=3, reps=10) -> float:
     return float(np.median(times))
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations over the bf16 peak or
+    bytes over the memory rate, whichever is larger."""
+    ops_ms = flops / (device_peak_tflops() * 1e12) * 1e3
+    bytes_ms = nbytes / device_peak_bandwidth() * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sdpa_inputs(q, k, v, seg):
+    """(B, H, S, D) leaves and the boolean causal ∧ same-segment mask (B, 1,
+    S, S) for torch's scaled_dot_product_attention, the library yardstick."""
+    S = q.shape[1]
+    mask = torch.tril(torch.ones(S, S, dtype=torch.bool, device=q.device))[None, None]
+    mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
+    return [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)], mask
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -126,14 +180,28 @@ def phase_device():
     return smi
 
 
-def phase_build():
+def phase_build(dev):
+    sources = (splash.SOURCE, splash.BWD_SOURCE)
     t0 = time.perf_counter()
-    _, log = build.build(splash.SOURCE)
-    build.load(splash.SOURCE)
-    seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "source": f"internevo_tpu_torch/csrc/{splash.SOURCE}",
-          "seconds": seconds, "ptxas": ptxas})
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        logs = list(pool.map(lambda src: build.build(src)[1], sources))
+    for src in sources:
+        build.load(src)
+    cuda_s = time.perf_counter() - t0
+    for src, log in zip(sources, logs):
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "source": f"internevo_tpu_torch/csrc/{src}", "seconds": cuda_s,
+              "ptxas": ptxas})
+    n = 2 * fused_adamw.BLOCK
+    f32 = [torch.zeros(n, device=dev) for _ in range(4)]
+    sc = fused_adamw.adamw_scalars(0, 0.9, 0.95, 1, 1, 1e-8, 0, 1, 0, dev)
+    for dtype in (torch.bfloat16, torch.float32):  # the param dtypes of the training path
+        t0 = time.perf_counter()
+        handle = fused_adamw.launch(*f32, torch.zeros(n, dtype=dtype, device=dev), sc)
+        torch.cuda.synchronize()
+        emit({"phase": "build", "source": "internevo_tpu_torch/ops/cuda/fused_adamw.py (Triton JIT)",
+              "param_dtype": str(dtype), "seconds": time.perf_counter() - t0,
+              "registers": getattr(handle, "n_regs", None), "spills": getattr(handle, "n_spills", None)})
 
 
 def phase_kernel(dev):
@@ -182,13 +250,40 @@ def phase_kernel(dev):
             timed = (q, k, v, seg)
         del q, k, v, out, lse, ref_out, ref_lse
     q, k, v, seg = timed
-    kernel_ms = cuda_time_ms(lambda: splash.splash_attention(q, k, v, seg, max_segment_len=MAX_SEG))
+    call = splash.ForwardCall(q, k, v, seg, None, q.shape[-1] ** -0.5, True, False, 0.0, None)
+    kernel_ms = cuda_time_ms(call.launch)
+    wrapper_ms = cuda_time_ms(lambda: splash.splash_attention(q, k, v, seg, max_segment_len=MAX_SEG))
     plain_ms = cuda_time_ms(lambda: splash.plain_forward(q, k, v, seg))
+    (qt, kt, vt), mask = sdpa_inputs(q, k, v, seg)
+    with torch.no_grad():
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    del qt, kt, vt, mask
     flops = attention_flops(seg.cpu().numpy(), q.shape[2], q.shape[3])
-    emit({"phase": "kernel", "case": "timing packed_mha", "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "useful_tflop": flops / 1e12, "kernel_tflops": flops / kernel_ms / 1e9,
+    # q, k, v and the segment ids read once; out (like q) and lse (B, Hq, S) fp32 written once
+    b = bound(flops, nbytes(q, k, v, seg) + nbytes(q) + 4 * q.shape[0] * q.shape[2] * q.shape[1])
+    emit({"phase": "kernel", "case": "timing packed_mha", "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
+          "plain_ms": plain_ms,
+          "library_ms": library_ms, "library": "scaled_dot_product_attention, bool mask (B, 1, S, S)",
+          **b, "useful_tflop": flops / 1e12, "kernel_tflops": flops / kernel_ms / 1e9,
           "kernel_share_of_bf16_peak": flops / kernel_ms / 1e9 / device_peak_tflops()})
-    return {"max_err_out": worst_out, "max_err_lse": worst_lse, "kernel_ms": kernel_ms, "plain_ms": plain_ms}
+    return {"max_err_out": worst_out, "max_err_lse": worst_lse, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **b}
+
+
+def plain_attention(q, k, v, segment_ids=None, softmax_scale=None, causal=True, **_):
+    """``flash_attention``'s signature on the splash plain forward: dense torch,
+    differentiable by plain autograd."""
+    return splash.plain_forward(q, k, v, segment_ids, None, softmax_scale, causal)[0]
+
+
+def plain_block(cfg, batch):
+    """A ``block_fn`` for ``model.apply``: the model's block with the plain
+    attention in place of the kernel."""
+    def block(layer, h):
+        mixer = lambda x: attention_block(cfg, layer, x, batch["indexes"], batch["segment_ids"],  # noqa: E731
+                                          attention_fn=plain_attention)
+        return block_forward(cfg, layer, h, batch["indexes"], batch["segment_ids"], mixer=mixer)
+    return block
 
 
 def phase_scoring(model, params, dev):
@@ -226,17 +321,9 @@ def phase_scoring(model, params, dev):
                                     num_layers=cfg.num_layers, vocab_size=cfg.vocab_size,
                                     global_batch_size=SCORE_B, mlp_ratio=cfg.mlp_ratio) / 3
 
-    def plain_attention(q, k, v, segment_ids=None, softmax_scale=None, causal=True, **_):
-        return splash.plain_forward(q, k, v, segment_ids, None, softmax_scale, causal)[0]
-
-    def plain_block(layer, h):
-        mixer = lambda x: attention_block(cfg, layer, x, batch["indexes"], batch["segment_ids"],  # noqa: E731
-                                          attention_fn=plain_attention)
-        return block_forward(cfg, layer, h, batch["indexes"], batch["segment_ids"], mixer=mixer)
-
     with torch.inference_mode():
         hidden = model.apply(params, batch["input_ids"], batch["indexes"], batch["segment_ids"],
-                             block_fn=plain_block, return_hidden=True)
+                             block_fn=plain_block(cfg, batch), return_hidden=True)
         nll_sum, n, _ = fused_norm_head_ce(hidden, params["norm"], params["head"]["weight"],
                                            batch["labels"], eps=cfg.layer_norm_epsilon,
                                            embed_grad_scale=cfg.embed_grad_scale)
@@ -306,10 +393,271 @@ def phase_serving(model, params, dev):
         raise AssertionError(f"{outside} sampled tokens outside their top-k/top-p set")
 
 
+def grads_close(got, want) -> dict:
+    d = (got.float() - want.float()).abs()
+    return {"max_abs_err": float(d.max()),
+            "outside": int((d > GRAD_ATOL + GRAD_RTOL * want.float().abs()).sum()),
+            "rel_l2": float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)),
+            "finite": bool(torch.isfinite(got.float()).all())}
+
+
+def grads_fail(checks: dict) -> list:
+    """The grads of a backward check that break a bound."""
+    return [n for n, r in checks.items() if r["outside"] or not r["finite"] or not r["rel_l2"] <= BWD_REL_L2]
+
+
+def phase_kernel_bwd(dev):
+    """The two backward kernels against plain_backward at the training shape,
+    five cases; then a planted fault (every kv tile's q window one tile
+    short) that the check must refuse; timings in the packed MHA case."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rng = np.random.RandomState(SEED + 5)
+    cases = {
+        "packed_mha": dict(S=TRAIN_S, hkv=HEADS),
+        "gqa_32_8": dict(S=TRAIN_S, hkv=HEADS // 4),
+        "dropout_0.1": dict(S=TRAIN_S, hkv=HEADS, dropout_rate=0.1, dropout_seed=[1234, 0, 0, 0, 0]),
+        "cross_kv_dlse": dict(S=TRAIN_S, hkv=HEADS, cross=True),
+        "ragged_4000": dict(S=TRAIN_S - 96, hkv=HEADS),
+    }
+    worst = {"dkdv": 0.0, "dq": 0.0}
+    timed = None
+    for name, c in cases.items():
+        S = c["S"]
+        q = torch.randn(TRAIN_B, S, HEADS, HEAD_DIM, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(TRAIN_B, S, c["hkv"], HEAD_DIM, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        seg = torch.from_numpy(packed_segments(TRAIN_B, S, MAX_SEG, 0, rng)[0]).to(dev)
+        kv_seg = torch.roll(seg, S // 3, dims=1) if c.get("cross") else None
+        seed = splash._norm_seed(c["dropout_seed"]) if "dropout_seed" in c else None
+        rate = c.get("dropout_rate", 0.0)
+        out, lse = splash.splash_attention_with_lse(q, k, v, seg, kv_seg, dropout_rate=rate, dropout_seed=seed)
+        do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        dlse = torch.randn(lse.shape, generator=g, device=dev) if c.get("cross") else None
+        args = (q, k, v, out, lse, do, dlse, seg, kv_seg, HEAD_DIM**-0.5, True)
+        got = splash._kernel_backward(*args, kv_seg is not None, rate, seed)
+        torch.cuda.synchronize()
+        want = splash.plain_backward(*args, rate, seed)
+        checks = {n: grads_close(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        emit({"phase": "kernel_bwd", "case": name, "shape_q": list(q.shape), "kv_heads": c["hkv"],
+              "empty_rows": int(torch.isneginf(lse).sum()), **{n: r for n, r in checks.items()}})
+        if grads_fail(checks):
+            raise AssertionError(f"{name}: backward kernel {grads_fail(checks)} disagrees with plain_backward: "
+                                 f"{checks}")
+        worst["dq"] = max(worst["dq"], checks["dq"]["max_abs_err"])
+        worst["dkdv"] = max(worst["dkdv"], checks["dk"]["max_abs_err"], checks["dv"]["max_abs_err"])
+        if name == "packed_mha":
+            timed, timed_want = args, want
+        del q, k, v, out, lse, do, got, want
+    q, k, v, out, lse, do, dlse, seg, kv_seg, scale, causal = timed
+    planted = splash.BackwardCall(*timed, False, 0.0, None)
+    planted.segs[3].sub_(1)  # q_hi, in place: the kernel reads it through the same pointer
+    planted.launch_dkdv()
+    torch.cuda.synchronize()
+    caught = grads_fail({n: grads_close(a, b) for n, a, b in zip(("dk", "dv"), (planted.dk, planted.dv),
+                                                                 timed_want[1:])})
+    emit({"phase": "kernel_bwd", "case": "planted fault: q_hi - 1", "refused": caught,
+          "rel_l2_dk": grads_close(planted.dk, timed_want[1])["rel_l2"]})
+    if caught != ["dk", "dv"]:
+        raise AssertionError(f"the backward check let a q window one tile short through: {caught}")
+    del planted, timed_want
+    call = splash.BackwardCall(*timed, False, 0.0, None)
+    dkdv_ms = cuda_time_ms(call.launch_dkdv)
+    dq_ms = cuda_time_ms(call.launch_dq)
+    bwd_ms = cuda_time_ms(lambda: splash._kernel_backward(*timed, False, 0.0, None))
+    plain_ms = cuda_time_ms(lambda: splash.plain_backward(*timed), warmup=1, reps=3)
+    (qt, kt, vt), mask = sdpa_inputs(q, k, v, seg)
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    library_ms = cuda_time_ms(sdpa_fwd_bwd, warmup=2, reps=5)
+    del qt, kt, vt, mask, dot
+    fwd_flops = attention_flops(seg.cpu().numpy(), q.shape[2], q.shape[3])  # 2 products
+    # The backward's work: 5 products (S, dP, dV, dK, dQ), 2.5x the forward's;
+    # inputs q, k, v, dO, the segment ids, lse and delta (fp32, B×Hq×S) read
+    # once, dq, dk, dv written once.  It is split between the two kernels so
+    # that their bounds sum to the backward's: dK/dV takes S, dP, dV and dK
+    # with every read and its writes; dQ takes only the dQ product and its
+    # write.  The dQ kernel's recomputation of S and dP is this design's cost,
+    # not the function's, and is left out of its bound
+    reads = nbytes(q, k, v, do, seg) + 2 * nbytes(lse)
+    b_dkdv = bound(2 * fwd_flops, reads + nbytes(k, v))
+    b_dq = bound(0.5 * fwd_flops, nbytes(q))
+    b_all = bound(2.5 * fwd_flops, reads + nbytes(q, k, v))
+    emit({"phase": "kernel_bwd", "case": "timing packed_mha", "dkdv_ms": dkdv_ms, "dq_ms": dq_ms,
+          "backward_ms": bwd_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "library": "scaled_dot_product_attention forward + backward, bool mask (B, 1, S, S)",
+          "bound_dkdv": b_dkdv, "bound_dq": b_dq, "bound_backward": b_all,
+          "useful_tflop": 2.5 * fwd_flops / 1e12, "backward_tflops": 2.5 * fwd_flops / bwd_ms / 1e9})
+    return {"dkdv": {"ms": dkdv_ms, "max_abs_err": worst["dkdv"], **b_dkdv},
+            "dq": {"ms": dq_ms, "max_abs_err": worst["dq"], **b_dq},
+            "plain_ms": plain_ms, "library_ms": library_ms, "backward_ms": bwd_ms}
+
+
+def phase_kernel_adamw(dev):
+    """The fused AdamW kernel against its plain version at 7B leaf shapes;
+    timings on the embedding leaf."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    lr, b1, b2, eps, wd, t = 1e-4, 0.9, 0.95, 1e-8, 0.01, 3
+    worst_err = 0.0
+    timed = None
+    for name, (shape, skip, dtype) in ADAMW_CASES.items():
+        grad = torch.randn(shape, generator=g, device=dev) * 1e-2
+        m = torch.randn(shape, generator=g, device=dev) * 1e-3
+        v = torch.rand(shape, generator=g, device=dev) * 1e-5
+        w = torch.randn(shape, generator=g, device=dev) * 2e-2
+        p = w.to(dtype)
+        sc = fused_adamw.adamw_scalars(lr, b1, b2, 1 - b1**t, 1 - b2**t, eps, wd, 0.5, skip, dev)
+        ref = [x.clone() for x in (m, v, w, p)]
+        fused_adamw.launch(grad, m, v, w, p, sc)
+        torch.cuda.synchronize()
+        fused_adamw.plain_adamw_update_(grad, *ref, sc)
+        errs = {n: float((a - b).abs().max()) for n, a, b in zip(("m", "v", "master"), (m, v, w), ref)}
+        rel = {n: errs[n] / float(b.abs().max()) for n, b in zip(("m", "v", "master"), ref)}
+        p_plain = ref[3].float()
+        ulp = torch.pow(2.0, torch.floor(torch.log2(p_plain.abs().clamp_min(1e-30))) - 7)
+        p_outside = int(((p.float() - p_plain).abs() > ulp + ADAMW_REL * ref[2].abs().max()).sum())
+        p_cast = bool(torch.equal(p, w.to(dtype)))
+        kept = bool(torch.equal(w, ref[2]) and torch.equal(p, ref[3])) if skip else None
+        emit({"phase": "kernel_adamw", "case": name, "shape": list(shape), "skip": skip, "param": str(dtype),
+              "max_abs_err": errs, "max_err_over_max": rel, "param_is_cast_of_master": p_cast,
+              "param_outside_one_ulp": p_outside, "skip_kept_inputs": kept})
+        if max(rel.values()) > ADAMW_REL or not p_cast or p_outside or kept is False:
+            raise AssertionError(f"{name}: fused AdamW disagrees with its plain version: {rel}, "
+                                 f"param cast {p_cast}, {p_outside} params outside one ulp")
+        worst_err = max(worst_err, errs["master"])
+        del ref
+        if name == ADAMW_TIMED:
+            timed = (grad, m, v, w, p, sc)
+        del grad, m, v, w, p
+        torch.cuda.empty_cache()
+    grad, m, v, w, p, sc = timed
+    del timed
+    kernel_ms = cuda_time_ms(lambda: fused_adamw.launch(grad, m, v, w, p, sc))
+    plain_ms = cuda_time_ms(lambda: fused_adamw.plain_adamw_update_(grad, m, v, w, p, sc))
+    del m, v, p
+    torch.cuda.empty_cache()
+    param = torch.nn.Parameter(w)
+    param.grad = grad
+    opt = torch.optim.AdamW([param], lr=lr, betas=(b1, b2), eps=eps, weight_decay=wd, fused=True)
+    library_ms = cuda_time_ms(opt.step)
+    n = grad.numel()
+    # read g (fp32), m, v, master; write m, v, master and the bf16 param: 30 B an element
+    b = bound(10.0 * n, n * (4 + 3 * 8 + 2))
+    emit({"phase": "kernel_adamw", "case": f"timing {ADAMW_TIMED}", "elements": n, "kernel_ms": kernel_ms,
+          "plain_ms": plain_ms, "library_ms": library_ms,
+          "library": "torch.optim.AdamW(fused=True).step() on the fp32 leaf (writes no bf16 copy)",
+          **b, "kernel_gb_per_s": n * 30 / kernel_ms / 1e6})
+    del opt, param, grad, w
+    torch.cuda.empty_cache()
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": worst_err, **b}
+
+
+def phase_train_grads(dev):
+    """Every param grad of a 2-layer model at 7B width, one packed row:
+    the kernel path against plain attention under autograd."""
+    model, params = initialize_model(train_config(2), dev, torch.Generator(device=dev).manual_seed(SEED + 7))
+    cfg = model.config
+    batch = packed_batch((TRAIN_B,), TRAIN_S, 0, cfg.vocab_size, np.random.RandomState(SEED + 7), dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def grads(block_fn=None):
+        hidden = model.apply(params, batch["input_ids"], batch["indexes"], batch["segment_ids"], train=True,
+                             block_fn=block_fn, return_hidden=True)
+        nll, n, _ = fused_norm_head_ce(hidden, params["norm"], params["head"]["weight"], batch["labels"],
+                                       eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale)
+        loss = nll / n
+        loss.backward()
+        out = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return float(loss.detach()), out
+
+    counts = (splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq)
+    loss_k, g_kernel = grads()
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip((splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq),
+                                           counts))
+    loss_p, g_plain = grads(plain_block(cfg, batch))
+    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+           for a, b in zip(g_kernel, g_plain)]
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in g_kernel)
+    worst = int(np.argmax(rel))
+    emit({"phase": "train_grads", "layers": cfg.num_layers, "hidden": cfg.hidden_size, "tokens": TRAIN_S,
+          "leaves": len(rel), "loss_kernel": loss_k, "loss_plain": loss_p, "max_rel_l2": rel[worst],
+          "worst_leaf": worst, "median_rel_l2": float(np.median(rel)), "bound": GRAD_REL_L2,
+          "launches_fwd_dkdv_dq": list(launched), "finite": finite})
+    if launched != (cfg.num_layers,) * 3:
+        raise AssertionError(f"kernel launches {launched}: want {cfg.num_layers} of each")
+    if not finite or not rel[worst] <= GRAD_REL_L2:
+        raise AssertionError(f"kernel-path grads vs plain attention: relative L2 {rel[worst]} (leaf {worst})")
+    del model, params, leaves, g_kernel, g_plain
+
+
+def phase_training(dev):
+    """The 7B_sft configuration at 8 layers, 4 steps through the Trainer on
+    one fixed batch (``tools/profile_step.py::train_setup``)."""
+    torch.cuda.reset_peak_memory_stats()
+    config, model, params, trainer, batch = train_setup(dev, SEED + 8)
+    cfg, data = model.config, config.data
+    micro_num, tokens = data.micro_num, data.micro_num * data.micro_bsz * data.seq_len
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+
+    def counts():
+        return (splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq, fused_adamw.launches)
+
+    splash.launches = splash.launches_bwd_dkdv = splash.launches_bwd_dq = fused_adamw.launches = 0
+    losses, times = [], []
+    for step in range(1, TRAIN_STEPS + 1):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.execute_schedule(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = [a - b for a, b in zip(counts(), before)]
+        groups = {k: float(v) for k, v in m["grad_norm_groups"].items()}
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "grad_norm_groups": groups,
+               "found_inf": bool(m["found_inf"]), "lr": trainer.engine.current_lr, "acc": float(m["acc"]),
+               "n_tokens": int(m["n_tokens"])}
+        emit({"phase": "training", "step": step, "step_s": times[-1], "launches_fwd_dkdv_dq_adamw": launched,
+              **rec})
+        want = [cfg.num_layers * micro_num] * 3 + [len(leaves)]
+        if launched != want:
+            raise AssertionError(f"step {step}: launches {launched}, want {want}")
+        if rec["found_inf"] or not all(map(math.isfinite, [rec["loss"], rec["grad_norm"], *groups.values()])):
+            raise AssertionError(f"step {step}: non-finite loss or grad norms: {rec}")
+        if rec["n_tokens"] != tokens:
+            raise AssertionError(f"step {step}: {rec['n_tokens']} valid tokens, want {tokens}")
+        losses.append(rec["loss"])
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"the loss did not fall on every step: {losses}")
+    step_s = float(np.median(times[1:]))
+    tflops = get_megatron_flops(step_s, checkpoint=cfg.checkpoint > 0, seq_len=data.seq_len,
+                                hidden_size=cfg.hidden_size, num_layers=cfg.num_layers,
+                                vocab_size=cfg.vocab_size, global_batch_size=micro_num * data.micro_bsz,
+                                mlp_ratio=cfg.mlp_ratio)
+    total = counts()
+    emit({"phase": "training", "model": "configs/7B_sft.py", "layers": cfg.num_layers,
+          "cut": "num_layers 32 -> 8 (18 bytes a parameter of state at 32 layers is ~131 GB)",
+          "params": n_params, "leaves": len(leaves), "micro_num": micro_num, "tokens_per_step": tokens,
+          "losses": losses, "step_s_median_2_4": step_s, "step_s": times, "tokens_per_s": tokens / step_s,
+          "tflops_megatron": tflops, "mfu": tflops / device_peak_tflops(),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches_fwd_dkdv_dq_adamw": list(total)})
+    del trainer, model, params, leaves, batch
+    return dict(zip(("fwd", "dkdv", "dq", "adamw"), total))
+
+
 def main() -> int:
     phase_device()
     dev = torch.device("cuda")
-    phase_build()
+    phase_build(dev)
     kernel = phase_kernel(dev)
     torch.cuda.empty_cache()
 
@@ -317,16 +665,37 @@ def main() -> int:
     model, params = initialize_model(config, "cuda", torch.Generator(device=dev).manual_seed(SEED))
     launches = phase_scoring(model, params, dev)
     phase_serving(model, params, dev)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()  # training starts from an empty card
 
-    emit({"kernels": [{
-        "name": "splash_attention_fwd", "route": "cuda",
-        "source": f"internevo_tpu_torch/csrc/{splash.SOURCE}",
-        "replaces": "internevo_tpu/ops/pallas/splash_attention.py:558 (_fwd_kernel_bsd), "
-                    ":457 (_fwd_kernel)",
-        "launches": launches, "max_abs_err": kernel["max_err_out"],
-        "max_err_out": kernel["max_err_out"], "max_err_lse": kernel["max_err_lse"],
-        "ms": kernel["kernel_ms"], "plain_ms": kernel["plain_ms"],
-        "kernel_ms": kernel["kernel_ms"]}]})
+    bwd = phase_kernel_bwd(dev)
+    adamw = phase_kernel_adamw(dev)
+    phase_train_grads(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = phase_training(dev)
+
+    bwd_source = f"internevo_tpu_torch/csrc/{splash.BWD_SOURCE}"
+    bwd_replaces = "internevo_tpu/ops/pallas/splash_attention.py:984 (_bwd_kernel_bsd), :787 (_bwd_kernel)"
+    bwd_common = {"plain_ms": bwd["plain_ms"], "plain": "plain_backward (dq, dk, dv together)",
+                  "library_ms": bwd["library_ms"],
+                  "library": "scaled_dot_product_attention forward + backward, bool mask (yardstick)",
+                  "backward_ms": bwd["backward_ms"]}
+    emit({"kernels": [
+        {"name": "splash_attention_fwd", "route": "cuda", "source": f"internevo_tpu_torch/csrc/{splash.SOURCE}",
+         "replaces": "internevo_tpu/ops/pallas/splash_attention.py:558 (_fwd_kernel_bsd), :457 (_fwd_kernel)",
+         "launches": launches, "launches_training": trained["fwd"], "max_abs_err": kernel["max_err_out"],
+         "max_err_lse": kernel["max_err_lse"], "ms": kernel["kernel_ms"], "plain_ms": kernel["plain_ms"],
+         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]},
+        {"name": "splash_attention_bwd_dkdv", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,
+         "launches": trained["dkdv"], **bwd["dkdv"], **bwd_common},
+        {"name": "splash_attention_bwd_dq", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,
+         "launches": trained["dq"], **bwd["dq"], **bwd_common},
+        {"name": "fused_adamw", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/fused_adamw.py",
+         "replaces": "internevo_tpu/ops/pallas/fused_adamw.py:37 (_kernel)", "launches": trained["adamw"],
+         **adamw},
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

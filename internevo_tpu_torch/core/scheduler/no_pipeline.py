@@ -1,9 +1,11 @@
-"""Forward-only schedule (port of ``internevo_tpu/core/scheduler/no_pipeline.py``,
-``_micro_loss_and_metrics`` with ``is_train=False`` and ``make_eval_step``).
+"""Non-pipeline schedule (port of ``internevo_tpu/core/scheduler/no_pipeline.py``):
+the train step with gradient accumulation over micro-batches, and the eval
+step.
 
-A batch is a dict of (B, S) tensors: ``input_ids``, ``indexes`` (packed
-positions), ``segment_ids`` and ``labels`` (-100 ignored).  Steps run under
-``torch.inference_mode()``.
+An eval batch is a dict of (B, S) tensors: ``input_ids``, ``indexes`` (packed
+positions), ``segment_ids`` and ``labels`` (-100 ignored); a train batch has
+a leading micro axis, (micro_num, B, S).  Eval steps run under
+``torch.inference_mode()``; train steps under autograd.
 """
 
 from __future__ import annotations
@@ -15,14 +17,18 @@ import torch
 from ...models.base import ModelDef
 from ...ops.cross_entropy import cross_entropy_loss
 from ...ops.fused_ce import fused_norm_head_ce, fused_norm_head_nll_tokens
+from ...solver.optimizer import AdamWConfig, GradScalerConfig, optimizer_step, tree_leaves, tree_map
 
 
 def _micro_loss_and_metrics(model: ModelDef, params, micro, label_smoothing: float = 0.0,
-                            fused_ce: bool = True, is_train: bool = False,
-                            chunk_size: int | None = None):
-    """(loss, (ce_loss, n_valid, n_correct)): the fused norm+head+CE for
-    RMSNorm models, logits + ``cross_entropy_loss`` otherwise."""
+                            moe_loss_coeff: float = 0.01, fused_ce: bool = True,
+                            is_train: bool = True, chunk_size: int | None = None):
+    """(loss, (ce_loss, n_valid, n_correct, moe_loss)): the fused
+    norm+head+CE for RMSNorm models, logits + ``cross_entropy_loss``
+    otherwise.  The port has no MoE model yet, so moe_loss is 0 and the loss
+    is the CE loss."""
     cfg = model.config
+    moe_loss = torch.zeros((), dtype=torch.float32, device=micro["input_ids"].device)
     if fused_ce and cfg.norm_type == "rmsnorm":
         hidden = model.apply(params, micro["input_ids"], micro["indexes"], micro["segment_ids"],
                              train=is_train, return_hidden=True)
@@ -31,7 +37,7 @@ def _micro_loss_and_metrics(model: ModelDef, params, micro, label_smoothing: flo
             eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale,
             norm_head=cfg.norm_head, label_smoothing=label_smoothing, chunk_size=chunk_size)
         ce_loss = nll_sum / n_valid.clamp_min(1)
-        return ce_loss, (ce_loss, n_valid, n_correct)
+        return ce_loss + moe_loss_coeff * moe_loss, (ce_loss, n_valid, n_correct, moe_loss)
 
     logits = model.apply(params, micro["input_ids"], micro["indexes"], micro["segment_ids"],
                          train=is_train)
@@ -39,7 +45,65 @@ def _micro_loss_and_metrics(model: ModelDef, params, micro, label_smoothing: flo
     labels = micro["labels"].reshape(-1)
     ce_loss, n_valid = cross_entropy_loss(flat_logits, labels, label_smoothing=label_smoothing)
     n_correct = ((flat_logits.argmax(dim=-1) == labels) & (labels != -100)).sum()
-    return ce_loss, (ce_loss, n_valid, n_correct)
+    return ce_loss + moe_loss_coeff * moe_loss, (ce_loss, n_valid, n_correct, moe_loss)
+
+
+def make_train_step(model: ModelDef, adam_cfg: AdamWConfig, scaler_cfg: GradScalerConfig,
+                    label_smoothing: float = 0.0, moe_loss_coeff: float = 0.01) -> Callable:
+    """``train_step(params, opt_state, batch, lr, beta2) -> (params,
+    opt_state, metrics)`` (the JAX ``make_train_step``; reference
+    ``no_pipeline_scheduler.py:28-239``).
+
+    ``batch`` tensors are (micro_num, B, S); the loop runs over the leading
+    micro axis.  Each micro-batch's loss is scaled by ``grad_scale /
+    micro_num`` before its backward, and its bf16 ``.grad``s are added into
+    fp32 accumulators and dropped, so one micro-batch's grads live at a time.
+    Then one ``optimizer_step`` updates params and state in place."""
+
+    def train_step(params, opt_state, batch, lr, beta2):
+        micro_num = batch["input_ids"].shape[0]
+        scale = opt_state["grad_scale"]
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        acc = tree_leaves(grads)
+        zero = torch.zeros((), dtype=torch.float32, device=scale.device)
+        loss_sum, moe_sum = zero, zero
+        n_tokens = n_correct = torch.zeros((), dtype=torch.int64, device=scale.device)
+        for i in range(micro_num):
+            micro = {k: v[i] for k, v in batch.items()}
+            loss, (ce_loss, n_valid, n_cor, moe_loss) = _micro_loss_and_metrics(
+                model, params, micro, label_smoothing, moe_loss_coeff)
+            (loss * scale / micro_num).backward()
+            with torch.no_grad():
+                for a, p in zip(acc, leaves):
+                    if p.grad is not None:
+                        a.add_(p.grad)
+                        p.grad = None
+            loss_sum = loss_sum + ce_loss.detach()
+            moe_sum = moe_sum + moe_loss.detach()
+            n_tokens = n_tokens + n_valid
+            n_correct = n_correct + n_cor
+        params, opt_state, stats = optimizer_step(params, grads, opt_state, lr, beta2,
+                                                  adam_cfg=adam_cfg, scaler_cfg=scaler_cfg)
+        loss = loss_sum / micro_num
+        metrics = {
+            "loss": loss,
+            "grad_norm": stats["grad_norm"],
+            "grad_norm_groups": stats["grad_norm_groups"],
+            "found_inf": stats["found_inf"],
+            "loss_scale": stats["loss_scale"],
+            "num_skipped": stats["num_skipped"],
+            "n_tokens": n_tokens,
+            "acc": n_correct / n_tokens.clamp_min(1),
+            # perplexity from summed nll: loss is already the mean over tokens
+            "perplexity": torch.exp(loss),
+            "moe_loss": moe_sum / micro_num,
+        }
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_eval_step(model: ModelDef, label_smoothing: float = 0.0, per_token: bool = False,
@@ -53,8 +117,8 @@ def make_eval_step(model: ModelDef, label_smoothing: float = 0.0, per_token: boo
     @torch.inference_mode()
     def eval_step(params, batch):
         if not per_token:
-            _, (ce_loss, n_valid, n_correct) = _micro_loss_and_metrics(
-                model, params, batch, label_smoothing, chunk_size=chunk_size)
+            _, (ce_loss, n_valid, n_correct, _) = _micro_loss_and_metrics(
+                model, params, batch, label_smoothing, is_train=False, chunk_size=chunk_size)
             return {"loss": ce_loss, "n_tokens": n_valid, "n_correct": n_correct}
 
         if cfg.norm_type == "rmsnorm":

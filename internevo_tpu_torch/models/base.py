@@ -1,14 +1,16 @@
 """Generic pre-norm SwiGLU transformer over packed sequences (port of
-``internevo_tpu/models/base.py``, inference half).
+``internevo_tpu/models/base.py``).
 
 Parameters are a plain dict of tensors.  Linear weights are in
 ``torch.nn.Linear`` layout, (out, in); the blocks are a list with one dict per
 layer.  Dtypes follow the JAX tree, whose init casts every leaf of two or more
 dims to the model dtype: the per-layer leaves (stacked there, so norms and
 biases included) are in the model dtype, and only the final norm is fp32.
-``models/jax_bridge.py`` converts between the two layouts.  Training (dropout,
-remat, autograd through the kernel) belongs to the training slice of the port:
-``model_forward(train=True)`` raises.
+``models/jax_bridge.py`` converts between the two layouts.  The forward is
+differentiable (the splash attention's backward is a kernel too).  Training
+with residual or attention dropout, or with activation recompute
+(``checkpoint`` > 0), is not ported yet: ``model_forward(train=True)`` raises
+for those settings rather than run without them.
 
 Block structure (``modeling_internlm.py:189-236``)::
 
@@ -37,8 +39,10 @@ _DTYPES = {"torch.bfloat16": torch.bfloat16, "torch.float16": torch.float16,
 
 @dataclasses.dataclass
 class ModelConfig:
-    """The inference fields of the JAX ``ModelConfig`` (the reference
-    ``build_model_with_cfg`` kwargs, ``modeling_internlm.py:463-549``)."""
+    """The dense-model fields of the JAX ``ModelConfig`` (the reference
+    ``build_model_with_cfg`` kwargs, ``modeling_internlm.py:463-549``).
+    ``checkpoint``, ``drop_rate`` and ``attn_drop_rate`` are read only to
+    refuse training with them (``model_forward``)."""
 
     num_layers: int = 12
     hidden_size: int = 768
@@ -48,6 +52,7 @@ class ModelConfig:
     mlp_ratio: float = 4.0
     max_position_embeddings: int = 2048
     dtype: Any = torch.bfloat16
+    checkpoint: float = 0.0          # fraction of layers fully rematerialized
     layer_norm_epsilon: float = 1e-5
     embed_grad_scale: float = 0.1
     use_dynamic_ntk_rope: bool = False
@@ -57,6 +62,8 @@ class ModelConfig:
     rotary_bf16: bool = False
     residual_in_fp32: bool = False
     norm_type: str = "rmsnorm"
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
     use_scaled_init: bool = True
     rope_base: float = 10000.0
     multiple_of: int = 256
@@ -73,6 +80,8 @@ class ModelConfig:
     no_bias: bool = False
 
     def __post_init__(self):
+        # config files may say checkpoint=True/False (ref 7B_sft.py comment)
+        self.checkpoint = float(self.checkpoint)
         if self.num_kv_attention_heads is None:
             self.num_kv_attention_heads = self.num_attention_heads
         if self.no_bias:
@@ -237,15 +246,32 @@ def head_logits(cfg: ModelConfig, params: dict, h):
     return F.linear(h, w.to(h.dtype))
 
 
+def _refuse_untrained_settings(cfg: ModelConfig) -> None:
+    """Training settings of the JAX model that the port does not carry yet."""
+    if cfg.drop_rate > 0.0:
+        raise NotImplementedError(
+            f"drop_rate={cfg.drop_rate}: residual dropout draws JAX threefry bits "
+            "(internevo_tpu/models/base.py:412-417) and comes with a later slice of the port")
+    if cfg.attn_drop_rate > 0.0:
+        raise NotImplementedError(
+            f"attn_drop_rate={cfg.attn_drop_rate}: attention dropout in training needs the "
+            "per-layer dropout streams, which come with a later slice of the port")
+    if cfg.checkpoint > 0.0:
+        raise NotImplementedError(
+            f"checkpoint={cfg.checkpoint}: activation recompute (remat, "
+            "internevo_tpu/models/base.py:497-588) comes with a later slice of the port")
+
+
 def model_forward(cfg: ModelConfig, params: dict, input_ids, positions, segment_ids,
                   train: bool = False, block_fn: Optional[Callable] = None,
                   return_hidden: bool = False):
     """Forward over the layer stack: logits (B, S, V), or the pre-final-norm
     hidden states with ``return_hidden`` (the fused norm+head+CE input).
-    ``block_fn(layer, x) -> x`` replaces the block body."""
+    ``block_fn(layer, x) -> x`` replaces the block body.  ``train`` runs the
+    training forward, which with this slice's settings is the same
+    computation; the settings it does not carry yet raise."""
     if train:
-        raise NotImplementedError("training forward (dropout, autograd through the splash "
-                                  "kernel) comes with the training slice of the port")
+        _refuse_untrained_settings(cfg)
     if block_fn is None:
         def block_fn(layer, h):
             return block_forward(cfg, layer, h, positions, segment_ids)

@@ -4,7 +4,8 @@ JAX tree (``internevo_tpu/models/base.py:171-229``): block leaves stacked on a
 leading layer axis, dense kernels (in, out), head kernel (hidden, vocab).  The
 port: a list of per-layer dicts, ``torch.nn.Linear`` weights (out, in) under
 "weight", head weight (vocab, hidden).  Every transpose and unstacking between
-the two lives here.  Leaves keep their dtype: bf16 arrays (``ml_dtypes``
+the two lives here.  Gradients share the param layout; optimizer states map
+their master/m/v trees the same way.  Leaves keep their dtype: bf16 arrays (``ml_dtypes``
 bfloat16, which ``torch.from_numpy`` rejects) travel through float32, which
 holds every bf16 value exactly.
 """
@@ -18,10 +19,13 @@ _LINEARS = ("wqkv", "out_proj", "w1", "w2", "w3")
 
 
 def _to_torch(a, device) -> torch.Tensor:
+    """A contiguous copy (the port's train step updates params in place, so a
+    tensor must not share memory with the array it came from, and the fused
+    AdamW update takes contiguous leaves)."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(a.astype(np.float32, order="C")).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -79,3 +83,18 @@ def params_to_numpy(params: dict) -> dict:
     if "norm_bias" in params:
         tree["norm_bias"] = _to_numpy(params["norm_bias"])
     return tree
+
+
+_OPT_TREES = ("master", "m", "v")
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The port's optimizer state -> the JAX ``init_optimizer_state`` layout
+    as numpy arrays (master/m/v in the param-tree layout)."""
+    return {k: params_to_numpy(v) if k in _OPT_TREES else _to_numpy(v) for k, v in state.items()}
+
+
+def opt_state_from_jax(state: dict, device="cpu") -> dict:
+    """A JAX optimizer state (numpy or jax arrays) -> the port's, on ``device``."""
+    return {k: params_from_jax(v, device) if k in _OPT_TREES else _to_torch(v, device)
+            for k, v in state.items()}

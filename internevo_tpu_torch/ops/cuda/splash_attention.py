@@ -1,14 +1,18 @@
-"""Splash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Splash attention: the CUDA kernels' wrappers, their plain versions, and
+the autograd Functions that join them.
 
-Counterpart of ``internevo_tpu/ops/pallas/splash_attention.py`` (forward
-only).  ``splash_attention`` / ``splash_attention_with_lse`` keep the JAX
-public names and semantics: causal ∧ same-segment attention over packed rows,
-GQA, optional counter-hash dropout, out (B, S, Hq, D) and lse (B, Hq, S) fp32,
-out 0 and lse -inf on rows with no valid key.
+Counterpart of ``internevo_tpu/ops/pallas/splash_attention.py``.
+``splash_attention`` / ``splash_attention_with_lse`` keep the JAX public names
+and semantics: causal ∧ same-segment attention over packed rows, GQA,
+optional counter-hash dropout, out (B, S, Hq, D) and lse (B, Hq, S) fp32, out 0
+and lse -inf on rows with no valid key.  Both are differentiable in q, k and
+v (``splash_attention_with_lse`` in its lse too, as the JAX ``custom_vjp``).
 
-Dispatch is on the tensors' device and nothing else: a CPU tensor runs the
-plain version (``plain_forward``, dense torch over a materialised score
-tensor), a CUDA tensor launches ``csrc/splash_attention_fwd.cu`` or raises.
+Dispatch is on the tensors' device and nothing else: CPU tensors run the
+plain versions (``plain_forward`` / ``plain_backward``, dense torch over a
+materialised score tensor), CUDA tensors launch
+``csrc/splash_attention_fwd.cu`` forward and ``csrc/splash_attention_bwd.cu``
+backward, or raise.
 
 The TPU kernel visits, per q block, only kv blocks from the start of the
 segment run at the block's first token (``kv_lo``) up to the diagonal; its
@@ -30,12 +34,16 @@ from .build import load
 
 LOG2E = 1.4426950408889634
 SOURCE = "splash_attention_fwd.cu"
-BLOCK_Q = 64   # the kernel's tile sizes: BQ and BK in the source
+BWD_SOURCE = "splash_attention_bwd.cu"
+BLOCK_Q = 64   # the kernels' tile sizes: BQ and BK in the sources
 BLOCK_K = 64
 # plain version: the largest (B, heads, S, Sk) score slab materialised at once
 _PLAIN_SLAB_ELEMS = 1 << 28
 
-launches = 0   # kernel launches; the plain version never counts
+# kernel launches; the plain versions never count
+launches = 0             # forward
+launches_bwd_dkdv = 0    # backward, dK/dV kernel
+launches_bwd_dq = 0      # backward, dQ kernel
 
 
 # ------------------------------------------------------------------ dropout
@@ -110,14 +118,28 @@ def dropout_mask_dense(rate: float, dropout_seed, B: int, H: int, S: int, Sk: in
 
 
 def _segment_windows(seg: torch.Tensor, kv_seg: torch.Tensor, block_q: int, block_k: int):
-    """Per-(b, q block) first useful kv block, from segment RUN boundaries
-    (runs are contiguous; ids need not be monotonic).  (B, cdiv(S, block_q))."""
-    B, Sk = kv_seg.shape
+    """From segment RUN boundaries (runs are contiguous; ids need not be
+    monotonic): ``kv_lo`` (B, cdiv(S, block_q)), the first useful kv block of
+    each q block, and ``q_hi`` (B, cdiv(Sk, block_k)), the last useful q block
+    of each kv block -- the run end at the kv block's last token, which the
+    dK/dV loop stops at.  Self-attention only (S == Sk).  Where block_k does
+    not divide S, the last, partial kv block reads the run end at token S - 1;
+    elsewhere ``q_hi`` is the JAX function's."""
+    B, S = seg.shape
+    Sk = kv_seg.shape[1]
     idx_k = torch.arange(Sk, device=kv_seg.device).expand(B, Sk)
     change = torch.ones_like(kv_seg, dtype=torch.bool)
     change[:, 1:] = kv_seg[:, 1:] != kv_seg[:, :-1]
     run_start = torch.cummax(torch.where(change, idx_k, torch.zeros_like(idx_k)), dim=1).values
-    return (run_start[:, ::block_q] // block_k).to(torch.int32)
+    idx_q = torch.arange(S, device=seg.device).expand(B, S)
+    change_n = torch.ones_like(seg, dtype=torch.bool)
+    change_n[:, :-1] = seg[:, 1:] != seg[:, :-1]
+    ends = torch.where(change_n, idx_q, torch.full_like(idx_q, S - 1))
+    run_end = torch.cummin(ends.flip(1), dim=1).values.flip(1)
+    last = (torch.arange(-(-Sk // block_k), device=seg.device) * block_k + block_k - 1).clamp_max(S - 1)
+    kv_lo = run_start[:, ::block_q] // block_k
+    q_hi = run_end[:, last] // block_q
+    return kv_lo.to(torch.int32), q_hi.to(torch.int32)
 
 
 # ------------------------------------------------------------ plain version
@@ -171,7 +193,65 @@ def plain_forward(q, k, v, segment_ids=None, kv_segment_ids=None, softmax_scale=
     return torch.cat(outs, dim=2), torch.cat(lses, dim=1)
 
 
-# ------------------------------------------------------------------- kernel
+def plain_backward(q, k, v, out, lse, do, dlse=None, segment_ids=None, kv_segment_ids=None,
+                   softmax_scale=None, causal=True, dropout_rate=0.0, dropout_seed=None):
+    """Dense torch backward with the kernels' math: P = exp(QKᵀ·scale − lse)
+    on the valid pairs (0 on masked pairs and on rows whose lse is -inf),
+    delta = rowsum(dO∘O) − dlse, dV = Σ (P∘drop)ᵀ dO, dS = P∘(dP∘drop − delta),
+    dQ = scale·dS K, dK = scale·dSᵀ Q, dK/dV summed over each kv group; P∘drop
+    and dS rounded to the input dtype before their products, as the kernels
+    do.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, S, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else D**-0.5
+    rep = Hq // Hkv
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.tril(mask)
+    mask = mask[None, None]
+    if segment_ids is not None:
+        mask = mask & (segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :])
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), out.float())
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dof = do.float()
+    dq = torch.empty(B, S, Hq, D, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(B, Sk, Hkv, D, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(B, Sk, Hkv, D, dtype=torch.float32, device=q.device)
+    hc = max(1, min(Hq, _PLAIN_SLAB_ELEMS // max(1, B * S * Sk)))
+    for h0 in range(0, Hq, hc):
+        h1 = min(Hq, h0 + hc)
+        kv_idx = [h // rep for h in range(h0, h1)]
+        qh, doh = q[:, :, h0:h1].float(), dof[:, :, h0:h1]
+        kh, vh = k[:, :, kv_idx].float(), v[:, :, kv_idx].float()
+        lse_h = lse[:, h0:h1].float()
+        valid = mask & ~torch.isneginf(lse_h)[..., None]
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+        p = torch.where(valid, torch.exp(logits - torch.where(valid, lse_h[..., None], 0.0)), 0.0)
+        del logits
+        dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
+        pd = p
+        if dropout_rate > 0.0:
+            drop = dropout_mask_dense(dropout_rate, dropout_seed, B, Hq, S, Sk, device=q.device,
+                                      head_offset=h0, n_heads=h1 - h0)
+            pd, dp = p * drop, dp * drop
+            del drop
+        ds = (p * (dp - delta[:, h0:h1, :, None])).to(q.dtype).float()
+        del p, dp
+        dv_h = torch.einsum("bhqk,bqhd->bkhd", pd.to(v.dtype).float(), doh)
+        del pd
+        dq[:, :, h0:h1] = scale * torch.einsum("bhqk,bkhd->bqhd", ds, kh)
+        dk_h = scale * torch.einsum("bhqk,bqhd->bkhd", ds, qh)
+        del ds
+        for j, hk in enumerate(kv_idx):
+            dk[:, :, hk] += dk_h[:, :, j]
+            dv[:, :, hk] += dv_h[:, :, j]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------------------ kernels
 
 
 def _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids):
@@ -185,22 +265,44 @@ def _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA splash kernel takes bf16 q/k/v; {name} is {t.dtype}")
+            raise TypeError(f"the CUDA splash kernels take bf16 q/k/v; {name} is {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if D not in (64, 128):
-        raise ValueError(f"the CUDA splash kernel takes head_dim 64 or 128, not {D}")
+        raise ValueError(f"the CUDA splash kernels take head_dim 64 or 128, not {D}")
     for name, t, n in (("segment_ids", segment_ids, S), ("kv_segment_ids", kv_segment_ids, k.shape[1])):
         if t is not None and (t.shape != (B, n) or t.device != q.device):
             raise ValueError(f"{name} must be ({B}, {n}) on {q.device}: {tuple(t.shape)} on {t.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the CUDA splash kernel is forward-only; its backward (splash_attention.py::"
-            "_bwd_kernel_bsd) comes with the training slice of the port")
+
+
+def _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv):
+    """int32 (q_seg, kv_seg, kv_lo, q_hi) on the device; windows are off
+    (kv_lo 0, q_hi the last q block) without segments or for cross kv."""
+    B, S = q.shape[:2]
+    Sk = k.shape[1]
+    nq, nk = -(-S // BLOCK_Q), -(-Sk // BLOCK_K)
+    if segment_ids is None:
+        q_seg = kv_seg = torch.zeros(1, dtype=torch.int32, device=q.device)
+    else:
+        q_seg = segment_ids.to(torch.int32).contiguous()
+        kv_seg = (segment_ids if kv_segment_ids is None else kv_segment_ids).to(torch.int32).contiguous()
+    if segment_ids is not None and not cross_kv:
+        kv_lo, q_hi = (t.contiguous() for t in _segment_windows(q_seg, kv_seg, BLOCK_Q, BLOCK_K))
+    else:
+        kv_lo = torch.zeros(B, nq, dtype=torch.int32, device=q.device)
+        q_hi = torch.full((B, nk), nq - 1, dtype=torch.int32, device=q.device)
+    return q_seg, kv_seg, kv_lo, q_hi
+
+
+def _dropout_args(dropout_rate, dropout_seed):
+    """(dropout flag, keep threshold, keep scale, 5 seed words) for the kernels."""
+    if dropout_rate <= 0.0:
+        return [0, 0, 1.0] + [0] * 5
+    return [1, _keep_thresh(dropout_rate), float(1.0 / (1.0 - dropout_rate))] + _seed_u32(dropout_seed)
 
 
 def _kernel_fn():
-    """The C entry point, built and loaded on first use, with its ctypes signature."""
+    """The forward's C entry point, built and loaded on first use, with its ctypes signature."""
     fn = load(SOURCE).splash_attention_fwd_bf16
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -210,71 +312,208 @@ def _kernel_fn():
     return fn
 
 
+def _bwd_fn(name: str):
+    """A backward C entry point (``splash_attention_bwd_{dkdv,dq}_bf16``; one
+    signature), built and loaded on first use."""
+    fn = getattr(load(BWD_SOURCE), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_float]
+                       + [ctypes.c_uint] * 5 + [ctypes.c_void_p])
+    return fn
+
+
+class ForwardCall:
+    """The prepared operands of one forward (control data, outputs, the
+    argument list); ``launch`` launches the kernel on them."""
+
+    def __init__(self, q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv, dropout_rate,
+                 dropout_seed):
+        _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids)
+        load(SOURCE)  # built before any work: a machine without the toolkit fails here
+        B, S, Hq, D = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv)[:3]
+        self.out = torch.empty_like(q)
+        self.lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
+        self.device = q.device
+        self.args = ([t.data_ptr() for t in (q, k, v, *self.segs, self.out, self.lse)]
+                     + [B, S, Sk, Hq, Hkv, D, float(scale * LOG2E), int(causal), int(segment_ids is not None),
+                        *_dropout_args(dropout_rate, dropout_seed)])
+        self.inputs = (q, k, v)  # kept alive while the kernel may read them
+
+    def launch(self) -> None:
+        global launches
+        fn = _kernel_fn()
+        with torch.cuda.device(self.device):
+            err = fn(*self.args, torch.cuda.current_stream(self.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"splash_attention_fwd launch failed: cudaError {err}")
+        launches += 1
+
+
 def _kernel_forward(q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv,
                     dropout_rate, dropout_seed):
-    global launches
-    _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids)
-    B, S, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    nq = -(-S // BLOCK_Q)
-    use_seg = segment_ids is not None
-    if use_seg:
-        q_seg = segment_ids.to(torch.int32).contiguous()
-        kv_seg = (segment_ids if kv_segment_ids is None else kv_segment_ids).to(torch.int32).contiguous()
-    else:
-        q_seg = kv_seg = torch.zeros(1, dtype=torch.int32, device=q.device)
-    if use_seg and not cross_kv:
-        kv_lo = _segment_windows(q_seg, kv_seg, BLOCK_Q, BLOCK_K).contiguous()
-    else:
-        kv_lo = torch.zeros(B, nq, dtype=torch.int32, device=q.device)
-    out = torch.empty_like(q)
-    lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
-    dropout = dropout_rate > 0.0
-    seeds = _seed_u32(dropout_seed) if dropout else [0] * 5
-    fn = _kernel_fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
-                 kv_lo.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                 B, S, Sk, Hq, Hkv, D, float(scale * LOG2E), int(causal), int(use_seg),
-                 int(dropout), _keep_thresh(dropout_rate) if dropout else 0,
-                 float(1.0 / (1.0 - dropout_rate)) if dropout else 1.0, *seeds, stream)
-    if err != 0:
-        raise RuntimeError(f"splash_attention_fwd launch failed: cudaError {err}")
-    launches += 1
-    return out, lse
+    call = ForwardCall(q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv, dropout_rate,
+                       dropout_seed)
+    call.launch()
+    return call.out, call.lse
 
 
-def _forward(q, k, v, segment_ids, kv_segment_ids, softmax_scale, causal, cross_kv,
-             dropout_rate, dropout_seed):
-    scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
-    if dropout_rate > 0.0 and dropout_seed is None:
-        raise ValueError("attention dropout needs dropout_seed")
-    if q.device.type == "cpu":
-        return plain_forward(q, k, v, segment_ids, kv_segment_ids, scale, causal,
-                             dropout_rate, dropout_seed)
-    if q.device.type != "cuda":
+class BackwardCall:
+    """The prepared operands of one backward: delta = rowsum(dO∘O) − dlse in
+    plain torch (as the JAX package computes it in XLA), the control data, the
+    outputs, and the argument list both kernels take.  ``launch_dkdv`` and
+    ``launch_dq`` launch the two kernels on it."""
+
+    def __init__(self, q, k, v, out, lse, do, dlse, segment_ids, kv_segment_ids, scale, causal,
+                 cross_kv, dropout_rate, dropout_seed):
+        _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids)
+        load(BWD_SOURCE)  # built before any work: a machine without the toolkit fails here
+        B, S, Hq, D = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        do = do.contiguous()  # the cotangent through reshape/out_proj need not be
+        if do.shape != q.shape or out.shape != q.shape or do.dtype != q.dtype or out.dtype != q.dtype:
+            raise ValueError(f"out and dO must be {tuple(q.shape)} {q.dtype}: "
+                             f"{tuple(out.shape)} {out.dtype}, {tuple(do.shape)} {do.dtype}")
+        if lse.shape != (B, Hq, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
+            raise ValueError(f"lse must be contiguous ({B}, {Hq}, {S}) fp32: {tuple(lse.shape)} {lse.dtype}")
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        self.delta = delta.contiguous()
+        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv)
+        self.do = do
+        self.dq, self.dk, self.dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        self.device = q.device
+        ptrs = [t.data_ptr() for t in (q, k, v, do, lse, self.delta, *self.segs,
+                                       self.dq, self.dk, self.dv)]
+        self.args = ptrs + [B, S, Sk, Hq, Hkv, D, float(scale), float(scale * LOG2E), int(causal),
+                            int(segment_ids is not None), *_dropout_args(dropout_rate, dropout_seed)]
+        self.inputs = (q, k, v, lse)  # kept alive while the kernels may read them
+
+    def _launch(self, name: str) -> None:
+        fn = _bwd_fn(name)
+        with torch.cuda.device(self.device):
+            err = fn(*self.args, torch.cuda.current_stream(self.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+    def launch_dkdv(self) -> None:
+        global launches_bwd_dkdv
+        self._launch("splash_attention_bwd_dkdv_bf16")
+        launches_bwd_dkdv += 1
+
+    def launch_dq(self) -> None:
+        global launches_bwd_dq
+        self._launch("splash_attention_bwd_dq_bf16")
+        launches_bwd_dq += 1
+
+
+def _kernel_backward(q, k, v, out, lse, do, dlse, segment_ids, kv_segment_ids, scale, causal,
+                     cross_kv, dropout_rate, dropout_seed):
+    call = BackwardCall(q, k, v, out, lse, do, dlse, segment_ids, kv_segment_ids, scale, causal,
+                        cross_kv, dropout_rate, dropout_seed)
+    call.launch_dkdv()
+    call.launch_dq()
+    return call.dq, call.dk, call.dv
+
+
+# ------------------------------------------------------------------ dispatch
+
+
+def _use_plain(q) -> bool:
+    """True for CPU tensors (the plain versions), False for CUDA tensors (the
+    kernels); any other device is refused."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"splash_attention runs on cpu (plain) or cuda (kernel), not {q.device}")
+    return q.device.type == "cpu"
+
+
+def _forward(q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv, dropout_rate,
+             dropout_seed):
+    if _use_plain(q):
+        return plain_forward(q, k, v, segment_ids, kv_segment_ids, scale, causal, dropout_rate,
+                             dropout_seed)
     return _kernel_forward(q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv,
                            dropout_rate, dropout_seed)
+
+
+def _backward(ctx, do, dlse):
+    q, k, v, out, lse, segment_ids, kv_segment_ids = ctx.saved_tensors
+    scale, causal, cross_kv, dropout_rate, dropout_seed = ctx.static
+    if _use_plain(q):
+        return plain_backward(q, k, v, out, lse, do, dlse, segment_ids, kv_segment_ids, scale,
+                              causal, dropout_rate, dropout_seed)
+    return _kernel_backward(q, k, v, out, lse, do, dlse, segment_ids, kv_segment_ids, scale,
+                            causal, cross_kv, dropout_rate, dropout_seed)
+
+
+def _save(ctx, q, k, v, out, lse, segment_ids, kv_segment_ids, *static):
+    ctx.save_for_backward(q, k, v, out, lse, segment_ids, kv_segment_ids)
+    ctx.static = static
+
+
+class _Splash(torch.autograd.Function):
+    """out = splash(q, k, v); the JAX ``_splash`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, scale, causal, dropout_rate, dropout_seed):
+        out, lse = _forward(q, k, v, segment_ids, None, scale, causal, False, dropout_rate,
+                            dropout_seed)
+        _save(ctx, q, k, v, out, lse, segment_ids, None, scale, causal, False, dropout_rate,
+              dropout_seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*_backward(ctx, do, None), None, None, None, None, None)
+
+
+class _SplashWithLse(torch.autograd.Function):
+    """(out, lse) = splash(q, k, v) with the lse differentiable; the JAX
+    ``_splash_lse`` custom_vjp (dlse enters delta)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv, dropout_rate,
+                dropout_seed):
+        out, lse = _forward(q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv,
+                            dropout_rate, dropout_seed)
+        _save(ctx, q, k, v, out, lse, segment_ids, kv_segment_ids, scale, causal, cross_kv,
+              dropout_rate, dropout_seed)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return (*_backward(ctx, do, dlse), None, None, None, None, None, None, None)
+
+
+def _prepare(q, softmax_scale, dropout_rate, dropout_seed):
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("attention dropout needs dropout_seed")
+    scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
+    return scale, (_norm_seed(dropout_seed) if dropout_rate > 0.0 else None)
 
 
 def splash_attention(q, k, v, segment_ids=None, softmax_scale=None, causal=True,
                      max_segment_len=None, dropout_rate=0.0, dropout_seed=None):
     """q: (B, S, Hq, D); k/v: (B, Sk, Hkv, D); segment_ids: (B, S) int.
-    Returns out (B, S, Hq, D).  ``max_segment_len`` is accepted for the API;
-    the kernel needs no static bound (module docstring)."""
-    out, _ = _forward(q, k, v, segment_ids, None, softmax_scale, causal, False,
-                      dropout_rate, dropout_seed)
-    return out
+    Returns out (B, S, Hq, D), differentiable in q, k, v.  ``max_segment_len``
+    is accepted for the API; the kernels need no static bound (module
+    docstring)."""
+    scale, seed = _prepare(q, softmax_scale, dropout_rate, dropout_seed)
+    return _Splash.apply(q, k, v, segment_ids, scale, causal, float(dropout_rate), seed)
 
 
 def splash_attention_with_lse(q, k, v, segment_ids=None, kv_segment_ids=None,
                               softmax_scale=None, causal=True, max_segment_len=None,
                               dropout_rate=0.0, dropout_seed=None):
-    """Like ``splash_attention`` but returns (out, lse (B, Hq, S) fp32).
-    ``kv_segment_ids`` may differ from ``segment_ids`` (a rotated kv chunk);
-    then segment windows are off and only the elementwise masks apply."""
+    """Like ``splash_attention`` but returns (out, lse (B, Hq, S) fp32), both
+    differentiable.  ``kv_segment_ids`` may differ from ``segment_ids`` (a
+    rotated kv chunk); then segment windows are off and only the elementwise
+    masks apply."""
+    scale, seed = _prepare(q, softmax_scale, dropout_rate, dropout_seed)
     cross = kv_segment_ids is not None and kv_segment_ids is not segment_ids
-    return _forward(q, k, v, segment_ids, kv_segment_ids, softmax_scale, causal, cross,
-                    dropout_rate, dropout_seed)
+    return _SplashWithLse.apply(q, k, v, segment_ids, kv_segment_ids, scale, causal, cross,
+                                float(dropout_rate), seed)

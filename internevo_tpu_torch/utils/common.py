@@ -35,16 +35,27 @@ def get_megatron_flops(
     return flops_per_iteration / (elapsed_time_per_iter * global_world_size * 1e12)
 
 
-# Peak dense bf16 TFLOP/s per card, keyed on a substring of
-# torch.cuda.get_device_name() (NVIDIA data sheets, SXM parts, no sparsity).
+# Peak dense bf16 TFLOP/s and device-memory bytes/s per card, keyed on a
+# substring of torch.cuda.get_device_name() (NVIDIA data sheets, SXM parts,
+# no sparsity).
 GPU_PEAK_TFLOPS = {"H100": 989.0}
+GPU_PEAK_BYTES_PER_S = {"H100": 3.35e12}
+
+
+def _lookup(table: dict, what: str, device_name: str | None) -> float:
+    name = device_name if device_name is not None else torch.cuda.get_device_name(0)
+    for key, value in table.items():
+        if key in name:
+            return value
+    raise KeyError(f"no {what} known for device {name!r}")
 
 
 def device_peak_tflops(device_name: str | None = None) -> float:
     """bf16 dense peak of the named card (default: CUDA device 0).  Raises for
     a card the table does not know, rather than guessing."""
-    name = device_name if device_name is not None else torch.cuda.get_device_name(0)
-    for key, tflops in GPU_PEAK_TFLOPS.items():
-        if key in name:
-            return tflops
-    raise KeyError(f"no bf16 peak known for device {name!r}")
+    return _lookup(GPU_PEAK_TFLOPS, "bf16 peak", device_name)
+
+
+def device_peak_bandwidth(device_name: str | None = None) -> float:
+    """Device-memory bytes/s of the named card (default: CUDA device 0)."""
+    return _lookup(GPU_PEAK_BYTES_PER_S, "memory bandwidth", device_name)

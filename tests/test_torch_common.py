@@ -21,3 +21,11 @@ def test_device_peak_table():
     assert device_peak_tflops("NVIDIA H100 80GB HBM3") == 989.0
     with pytest.raises(KeyError, match="no bf16 peak"):
         device_peak_tflops("NVIDIA A100-SXM4-80GB")
+
+
+def test_device_bandwidth_table():
+    from internevo_tpu_torch.utils.common import device_peak_bandwidth
+
+    assert device_peak_bandwidth("NVIDIA H100 80GB HBM3") == 3.35e12
+    with pytest.raises(KeyError, match="no memory bandwidth"):
+        device_peak_bandwidth("NVIDIA A100-SXM4-80GB")

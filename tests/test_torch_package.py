@@ -1,15 +1,21 @@
 """The PyTorch port stands alone: it never imports jax or internevo_tpu, its
-device shim never hands back the CPU for a CUDA request, and a CUDA request
-on a machine without a card raises instead of falling back."""
+device shim never hands back the CPU for a CUDA request, a CUDA request on a
+machine without a card raises instead of falling back, and CUDA tensors --
+those that need a gradient too -- reach the kernels, never the plain
+versions."""
 
 import subprocess
 import sys
+import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from internevo_tpu_torch.accelerator import get_device
+from internevo_tpu_torch.ops.cuda import fused_adamw
 from internevo_tpu_torch.ops.cuda import splash_attention as splash
 
 REPO = Path(__file__).resolve().parents[1]
@@ -18,6 +24,11 @@ PORT_MODULES = [
     "internevo_tpu_torch.accelerator",
     "internevo_tpu_torch.core.config",
     "internevo_tpu_torch.core.scheduler.no_pipeline",
+    "internevo_tpu_torch.core.engine",
+    "internevo_tpu_torch.core.trainer",
+    "internevo_tpu_torch.solver",
+    "internevo_tpu_torch.solver.lr_scheduler",
+    "internevo_tpu_torch.solver.optimizer",
     "internevo_tpu_torch.utils.registry",
     "internevo_tpu_torch.utils.common",
     "internevo_tpu_torch.ops.norm",
@@ -27,12 +38,15 @@ PORT_MODULES = [
     "internevo_tpu_torch.ops.fused_ce",
     "internevo_tpu_torch.ops.cuda.build",
     "internevo_tpu_torch.ops.cuda.splash_attention",
+    "internevo_tpu_torch.ops.cuda.fused_adamw",
     "internevo_tpu_torch.models",
     "internevo_tpu_torch.models.base",
     "internevo_tpu_torch.models.internlm",
     "internevo_tpu_torch.models.jax_bridge",
     "internevo_tpu_torch.train.pipeline",
     "internevo_tpu_torch.apis.inference",
+    "internevo_tpu_torch.tools",
+    "internevo_tpu_torch.tools.profile_step",
 ]
 
 
@@ -75,3 +89,57 @@ def test_splash_wrapper_refuses_non_cpu_non_cuda():
     with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
         splash.splash_attention(q, q, q)
     assert splash.launches == 0
+
+
+def _refuse_plain(*_, **__):
+    raise AssertionError("a plain version was reached for a CUDA tensor")
+
+
+class _KernelReached(RuntimeError):
+    pass
+
+
+def _kernel_reached(*_, **__):
+    raise _KernelReached
+
+
+def test_cuda_grad_reaches_kernels_never_plain(monkeypatch):
+    """Fake CUDA tensors (shapes and devices, no card): the splash forward,
+    the backward of both autograd Functions -- what autograd runs for a CUDA
+    tensor that needs a gradient -- and the fused AdamW update all go for
+    their kernels' builds, which are stubbed to raise here; no plain version
+    runs and no launch counts.  (A fake CUDA tensor cannot itself require
+    grad on a CPU-only build: the autograd engine asks for a CUDA device
+    guard; ``test_splash_functions_carry_the_graph`` shows on the CPU that
+    the same Functions carry the graph.)"""
+    monkeypatch.setattr(splash, "plain_forward", _refuse_plain)
+    monkeypatch.setattr(splash, "plain_backward", _refuse_plain)
+    monkeypatch.setattr(splash, "load", _kernel_reached)
+    monkeypatch.setattr(fused_adamw, "plain_adamw_update_", _refuse_plain)
+    monkeypatch.setattr(fused_adamw, "_kernel", _kernel_reached)
+    counts = (splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq, fused_adamw.launches)
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore")  # data_ptr of a fake tensor
+        q = torch.empty(1, 64, 2, 64, dtype=torch.bfloat16, device="cuda")
+        lse = torch.empty(1, 2, 64, device="cuda")
+        with pytest.raises(_KernelReached):
+            splash.splash_attention(q, q, q)
+        static = (0.125, True, False, 0.0, None)
+        ctx = SimpleNamespace(saved_tensors=(q, q, q, q, lse, None, None), static=static)
+        with pytest.raises(_KernelReached):
+            splash._Splash.backward(ctx, torch.empty_like(q))
+        with pytest.raises(_KernelReached):
+            splash._SplashWithLse.backward(ctx, torch.empty_like(q), torch.empty_like(lse))
+        p = torch.empty(64, dtype=torch.bfloat16, device="cuda")
+        f32 = torch.empty(64, device="cuda")
+        with pytest.raises(_KernelReached):
+            fused_adamw.fused_adamw_update_(f32, f32, f32, f32, p, torch.empty(9, device="cuda"))
+    assert counts == (splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq, fused_adamw.launches)
+
+
+def test_splash_functions_carry_the_graph():
+    """A tensor that needs a gradient gets its backward from the splash
+    autograd Functions, whose backward dispatches as above."""
+    x = torch.zeros(1, 64, 2, 64, requires_grad=True)
+    assert splash.splash_attention(x, x, x).grad_fn.name() == "_SplashBackward"
+    assert splash.splash_attention_with_lse(x, x, x)[0].grad_fn.name() == "_SplashWithLseBackward"

@@ -92,7 +92,7 @@ def test_nonmonotonic_pad_ids():
     j, t = _both(jsplash.splash_attention, tsplash.splash_attention, (q, k, v, seg), max_segment_len=256)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
     np.testing.assert_array_equal(
-        tsplash._segment_windows(torch.from_numpy(seg), torch.from_numpy(seg), BLOCK, BLOCK).numpy(),
+        tsplash._segment_windows(torch.from_numpy(seg), torch.from_numpy(seg), BLOCK, BLOCK)[0].numpy(),
         np.asarray(jsplash._segment_windows(jnp.asarray(seg), jnp.asarray(seg), BLOCK, BLOCK)[0]))
 
 
@@ -100,7 +100,7 @@ def test_nonmonotonic_pad_ids():
 def test_kv_lo_matches_segment_windows(block):
     seg = _packed_segments(3, 512, 100, seed=5)
     seg[1, 400:] = 0  # zero-padded tail
-    kv_lo = tsplash._segment_windows(torch.from_numpy(seg), torch.from_numpy(seg), block, block)
+    kv_lo = tsplash._segment_windows(torch.from_numpy(seg), torch.from_numpy(seg), block, block)[0]
     ref = jsplash._segment_windows(jnp.asarray(seg), jnp.asarray(seg), block, block)[0]
     np.testing.assert_array_equal(kv_lo.numpy(), np.asarray(ref))
 

@@ -1,4 +1,5 @@
-"""The CUDA splash kernel against its plain version, on the card.
+"""The CUDA splash kernels, forward and backward, against their plain
+versions, on the card.
 
 Needs an NVIDIA GPU with the CUDA toolkit (the kernel has no CPU mode); skips
 elsewhere.  On such a machine:
@@ -9,7 +10,10 @@ elsewhere.  On such a machine:
 not have.)
 
 Tolerance: out within rtol = atol = 1.6e-2 (bf16 probabilities rounded at
-different points, then out rounded once), lse within 1e-4 (fp32 in both).
+different points, then out rounded once), lse within 1e-4 (fp32 in both);
+dq, dk, dv within rtol = atol = 1.6e-2 (both round P∘drop and dS to bf16 at
+the same points, from fp32 scores summed in another order, then round the
+grads once).
 """
 
 import numpy as np
@@ -75,5 +79,46 @@ def test_kernel_refuses_what_it_does_not_take(dev):
                                 v[..., :96].contiguous(), seg)
     with pytest.raises(ValueError, match="contiguous"):
         splash.splash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, seg)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        splash.splash_attention(q.requires_grad_(), k, v, seg)
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,D,cross,drop,causal", [
+    (512, 4, 4, 128, False, 0.0, True),
+    (333, 4, 2, 128, False, 0.0, True),
+    (256, 4, 1, 64, False, 0.0, True),
+    (384, 2, 2, 128, True, 0.0, True),
+    (384, 4, 2, 64, False, 0.2, True),
+    (300, 2, 2, 128, False, 0.0, False),
+])
+def test_backward_kernels_match_plain(dev, S, Hq, Hkv, D, cross, drop, causal):
+    """Through autograd (splash_attention_with_lse, dlse included): each
+    backward kernel launches once, and dq/dk/dv match plain_backward."""
+    q, k, v, seg = _inputs(dev, 2, S, Hq, Hkv, D, seed=1)
+    kv_seg = torch.roll(seg, S // 3, dims=1) if cross else None
+    seed = [5, 0, 0, 0, 0] if drop else None
+    g = torch.Generator(device=dev).manual_seed(2)
+    do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    dlse = torch.randn(2, Hq, S, generator=g, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (splash.launches_bwd_dkdv, splash.launches_bwd_dq)
+    out, lse = splash.splash_attention_with_lse(*leaves, seg, kv_seg, causal=causal,
+                                                dropout_rate=drop, dropout_seed=seed)
+    lse_ok = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+    torch.autograd.backward([out, lse_ok], [do, dlse])
+    torch.cuda.synchronize()
+    assert (splash.launches_bwd_dkdv, splash.launches_bwd_dq) == (before[0] + 1, before[1] + 1)
+    ref = splash.plain_backward(q, k, v, out.detach(), lse.detach(), do,
+                                torch.where(torch.isneginf(lse.detach()), 0.0, dlse), seg, kv_seg,
+                                None, causal, drop, splash._norm_seed(seed) if drop else None)
+    for name, got, want in zip(("dq", "dk", "dv"), (t.grad for t in leaves), ref):
+        assert torch.isfinite(got.float()).all(), name
+        torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=1.6e-2, msg=name)
+
+
+def test_backward_is_deterministic(dev):
+    q, k, v, seg = _inputs(dev, 1, 1024, 4, 2, 128, seed=3)
+    out, lse = splash.splash_attention_with_lse(q, k, v, seg)
+    do = torch.ones_like(q)
+    a = splash._kernel_backward(q, k, v, out, lse, do, None, seg, None, 128**-0.5, True, False, 0.0, None)
+    b = splash._kernel_backward(q, k, v, out, lse, do, None, seg, None, 128**-0.5, True, False, 0.0, None)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

@@ -31,7 +31,30 @@ the run with a non-zero exit:
 9. training      the 7B_sft configuration cut to 8 layers takes 4 steps
                  through ``initialize_*`` and ``Trainer.execute_schedule``
                  (``tools/profile_step.py::train_setup``); launches, finite
-                 norms and a falling loss are held.
+                 norms and a falling loss are held;
+10. kernel_gmm   the grouped-matmul kernels (gmm, gmm with the rhs
+                 transposed, tgmm) against their plain versions at the MoE
+                 training shapes (8192 routed rows, 4 experts, 4096 <-> 11008,
+                 both directions) in four group layouts and at the scoring
+                 shape (16,384 rows) in two, one planted fault (group ends
+                 shifted by a row) the check must catch, and timings;
+11. moe_grads    every param grad of a 1-layer MoE4 model at full width
+                 (``configs/7B_MoE4_sft.py`` routed dropless,
+                 ``tools/profile_step.py::moe_config``) through the kernels,
+                 against the same model with the plain grouped matmul, with
+                 the routing held identical;
+12. moe_scoring  the MoE4 model at full width and depth scores the packed
+                 rows of phase 4 through ``make_eval_step`` (3 gmm launches a
+                 layer a forward); layer 0's three gmm calls (16,384 routed
+                 rows) are held against ``plain_gmm`` on their own inputs,
+                 with a planted fault each; the loss is held against a
+                 forward with the plain grouped matmul, and routing
+                 differences counted;
+13. moe_training the MoE4 configuration cut to 4 layers takes 4 steps
+                 through the Trainer (``moe_train_setup``);
+14. moe_training_plain  the same 4 steps from the same seed with the plain
+                 grouped matmul; each step's loss and ``moe_loss`` are held
+                 against phase 13's.
 
 Then a ``{"kernels": [...]}`` line and, last, the run's verdict line.  With no
 CUDA device the script exits non-zero before printing any result.  It imports
@@ -58,11 +81,14 @@ from internevo_tpu_torch.apis.inference import (SequenceGenerator, init_kv_cache
 from internevo_tpu_torch.core.config import Config
 from internevo_tpu_torch.core.scheduler.no_pipeline import make_eval_step
 from internevo_tpu_torch.models.base import attention_block, block_forward
-from internevo_tpu_torch.ops.cuda import build, fused_adamw
+from internevo_tpu_torch.models.modeling_moe import moe_ffn
+from internevo_tpu_torch.models.moe import dropless
+from internevo_tpu_torch.ops.cuda import build, fused_adamw, gmm
 from internevo_tpu_torch.ops.cuda import splash_attention as splash
 from internevo_tpu_torch.ops.fused_ce import fused_norm_head_ce
 from internevo_tpu_torch.solver.optimizer import tree_leaves
-from internevo_tpu_torch.tools.profile_step import packed_batch, packed_segments, train_config, train_setup
+from internevo_tpu_torch.tools.profile_step import (moe_config, moe_train_setup, packed_batch, packed_segments,
+                                                    train_config, train_setup)
 from internevo_tpu_torch.train.pipeline import initialize_model
 from internevo_tpu_torch.utils.common import device_peak_bandwidth, device_peak_tflops, get_megatron_flops
 
@@ -113,6 +139,44 @@ ADAMW_CASES = {"wqkv": ((12288, 4096), 0.0, BF16), "w1": ((11008, 4096), 0.0, BF
                "embedding": ((103168, 4096), 0.0, BF16), "norm1": ((4096,), 0.0, BF16),
                "norm_fp32": ((4096,), 0.0, FP32), "wqkv_skip": ((12288, 4096), 1.0, BF16)}
 ADAMW_TIMED = "embedding"
+# kernel_gmm: the MoE training shapes (one packed 4096-token row, top-2: 8192
+# routed rows; hidden 4096, expert width 11008, 4 experts) in four group
+# layouts, and the scoring shape (two packed rows: 16,384 routed rows) in two:
+# (rows, group sizes).  The timings take the balanced training case
+GMM_H, GMM_M, GMM_E = 4096, 11008, 4
+GMM_CASES = {"balanced": (8192, [2048] * 4), "skewed_empty": (8192, [6000, 0, 2000, 192]),
+             "one_group": (8192, [0, 0, 8192, 0]), "rows_past_sum": (8000, [2000, 1900, 2100, 1800]),
+             "scoring_balanced": (16384, [4096] * 4), "scoring_skewed_empty": (16384, [9000, 300, 0, 7084])}
+# gmm kernels vs plain, on the card: both sum exact bf16 products in fp32 and
+# round once, in another order.  bf16 outputs elementwise as the splash
+# forward's (a sum near a rounding boundary lands one bf16 step away) and a
+# relative L2 of 10x the largest sound reading (2.51e-4, the dgrad direction,
+# on an H100); fp32 dW a relative L2 of 10x its largest sound reading
+# (9.1e-6, one group of 8192 rows).  A group end one row off moves a whole
+# row to another expert: 1.6e-2 relative L2 and thousands of elements out
+GMM_REL_L2 = 2.6e-3
+TGMM_REL_L2 = 1e-4
+# moe_scoring: the loss of the kernel path vs the plain grouped matmul over
+# 32 random-weight layers.  The two round expert outputs at different points,
+# so near-tie tokens of later layers route to another expert; the loss moves
+# by the difference those few tokens make, averaged over ~8k tokens.  10x the
+# sound reading (6.9e-5 on an H100).  With random weights the loss sits near
+# ln(vocab) and hardly moves with the experts' output: a planted fault (a
+# group end one row off in every call) read 6.7e-5 too.  So the loss does
+# not hold the kernel; layer 0's gmm calls are held one by one at this shape
+MOE_LOSS_GAP = 7e-4
+# moe_training_plain: step by step, the loss and moe_loss of the kernel path
+# vs the plain grouped matmul from the same weights, 10x each step's reading
+# on an H100 (loss 3.1e-5, 3.2e-4, 1.9e-3, 1.1e-2; moe_loss 3.1e-4, 1.5e-3,
+# 0.15, 0.055).  Step 1 differs by rounding only; after it the two paths'
+# weights differ, near-tie tokens route apart, and Adam grows the gap ~6-10x
+# a step
+MOE_TRAIN_LOSS_GAP = (3.2e-4, 3.3e-3, 1.9e-2, 0.12)
+MOE_TRAIN_MOE_LOSS_GAP = (3.2e-3, 1.6e-2, 1.6, 0.55)
+# the per-token path reads the bf16 logits (the JAX logits path for MoE
+# models), the plain one the fused CE's fp32 logits: a few bf16 steps of
+# logit rounding, averaged
+MOE_TOKEN_PATH_GAP = 1e-2
 
 
 def emit(obj) -> None:
@@ -181,7 +245,7 @@ def phase_device():
 
 
 def phase_build(dev):
-    sources = (splash.SOURCE, splash.BWD_SOURCE)
+    sources = (splash.SOURCE, splash.BWD_SOURCE, gmm.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         logs = list(pool.map(lambda src: build.build(src)[1], sources))
@@ -654,6 +718,402 @@ def phase_training(dev):
     return dict(zip(("fwd", "dkdv", "dq", "adamw"), total))
 
 
+def gmm_checks(got, want, bf16: bool) -> dict:
+    d = got.float() - want.float()
+    out = {"max_abs_err": float(d.abs().max()),
+           "rel_l2": float(d.norm() / want.float().norm().clamp_min(1e-30)),
+           "finite": bool(torch.isfinite(got.float()).all())}
+    if bf16:
+        out["outside"] = int((d.abs() > GRAD_ATOL + GRAD_RTOL * want.float().abs()).sum())
+    return out
+
+
+def gmm_refused(r: dict, bf16: bool) -> bool:
+    return bool(r.get("outside")) or not r["finite"] or not r["rel_l2"] <= (GMM_REL_L2 if bf16 else TGMM_REL_L2)
+
+
+def library_grouped_mm(a, b, offs, out_dtype):
+    """One ``torch._grouped_mm`` call with ``offs``, the yardstick, where the
+    card's torch has it and takes these operands; else None."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    try:
+        fn(a, b, offs=offs, out_dtype=out_dtype)
+    except (RuntimeError, TypeError, ValueError):
+        return None
+    return lambda: fn(a, b, offs=offs, out_dtype=out_dtype)
+
+
+def phase_kernel_gmm(dev):
+    """gmm, gmm with the rhs transposed, and tgmm against their plain
+    versions at the MoE training and scoring shapes, in both directions of
+    the expert MLP (w1: 4096 -> 11008, w2: 11008 -> 4096), in ``GMM_CASES``'s
+    group layouts; a planted fault; timings in the balanced case on w1."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    H, M, E = GMM_H, GMM_M, GMM_E
+    n_max = max(n for n, _ in GMM_CASES.values())
+    bf = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g, device=dev) * scale).to(BF16)  # noqa: E731
+    x, hm, dy_m, dy_h = bf(n_max, H), bf(n_max, M), bf(n_max, M), bf(n_max, H)
+    w1, w2 = bf(E, H, M, scale=0.02), bf(E, M, H, scale=0.02)
+    worst = {k: {"max_abs_err": 0.0, "rel_l2": 0.0} for k in ("gmm", "gmm_dgrad", "tgmm")}
+    for case, (n, sizes) in GMM_CASES.items():
+        gs = torch.tensor(sizes, device=dev)
+        calls = {  # name: (kernel class, kernel, plain)
+            "gmm_w1": ("gmm", lambda: gmm.gmm(x[:n], w1, gs), lambda: gmm.plain_gmm(x[:n], w1, gs)),
+            "gmm_w2": ("gmm", lambda: gmm.gmm(hm[:n], w2, gs), lambda: gmm.plain_gmm(hm[:n], w2, gs)),
+            "dgrad_w1": ("gmm_dgrad", lambda: gmm.gmm(dy_m[:n], w1, gs, transpose_rhs=True),
+                         lambda: gmm.plain_gmm(dy_m[:n], w1, gs, transpose_rhs=True)),
+            "dgrad_w2": ("gmm_dgrad", lambda: gmm.gmm(dy_h[:n], w2, gs, transpose_rhs=True),
+                         lambda: gmm.plain_gmm(dy_h[:n], w2, gs, transpose_rhs=True)),
+            "tgmm_w1": ("tgmm", lambda: gmm.tgmm(x[:n], dy_m[:n], gs, E), lambda: gmm.plain_tgmm(x[:n], dy_m[:n], gs, E)),
+            "tgmm_w2": ("tgmm", lambda: gmm.tgmm(hm[:n], dy_h[:n], gs, E), lambda: gmm.plain_tgmm(hm[:n], dy_h[:n], gs, E)),
+        }
+        checks, bad = {}, []
+        for name, (cls, kernel, plain) in calls.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            bf16 = cls != "tgmm"
+            r = checks[name] = gmm_checks(got, plain(), bf16)
+            if not bf16:  # an empty group's dW is exactly 0 (the last group also owns the rows past the sum)
+                r["empty_groups_zero"] = all(bool((got[e] == 0).all()) for e in range(E - 1) if sizes[e] == 0)
+            if gmm_refused(r, bf16) or r.get("empty_groups_zero") is False:
+                bad.append(name)
+            for k in ("max_abs_err", "rel_l2"):
+                worst[cls][k] = max(worst[cls][k], r[k])
+            del got
+        emit({"phase": "kernel_gmm", "case": case, "rows": n, "group_sizes": sizes, **checks})
+        if bad:
+            raise AssertionError(f"{case}: gmm kernels {bad} disagree with their plain versions: {checks}")
+
+    n, sizes = GMM_CASES["balanced"]
+    x, dy_m = x[:n], dy_m[:n]  # the planted fault and the timings: the training shape
+    gs = torch.tensor(sizes, device=dev)
+    planted = {}
+    for name, call, plain in (("gmm", gmm.GmmCall(x, w1, gs), lambda: gmm.plain_gmm(x, w1, gs)),
+                              ("gmm_dgrad", gmm.GmmCall(dy_m, w1, gs, transpose_rhs=True),
+                               lambda: gmm.plain_gmm(dy_m, w1, gs, transpose_rhs=True)),
+                              ("tgmm", gmm.TgmmCall(x, dy_m, gs, E), lambda: gmm.plain_tgmm(x, dy_m, gs, E))):
+        call.ends[0] += 1  # in place: the kernel reads it through the same pointer
+        call.launch()
+        torch.cuda.synchronize()
+        bf16 = name != "tgmm"
+        r = gmm_checks(call.out, plain(), bf16)
+        planted[name] = {"refused": gmm_refused(r, bf16), **r}
+    emit({"phase": "kernel_gmm", "case": "planted fault: first group end + 1", **planted})
+    if not all(r["refused"] for r in planted.values()):
+        raise AssertionError(f"the gmm check let a group end one row off through: {planted}")
+
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    n = x.shape[0]
+    ends = [0, *np.cumsum(GMM_CASES["balanced"][1]).tolist()]
+    groups = list(zip(range(E), ends[:-1], ends[1:]))
+    timed = {  # name: (kernel, plain, one library call or None, a loop of torch.mm, bytes moved)
+        "gmm": (gmm.GmmCall(x, w1, gs).launch, lambda: gmm.plain_gmm(x, w1, gs),
+                library_grouped_mm(x, w1, offs, BF16),
+                lambda: [torch.mm(x[a:b], w1[e]) for e, a, b in groups], nbytes(x, w1) + n * M * 2),
+        "gmm_dgrad": (gmm.GmmCall(dy_m, w1, gs, transpose_rhs=True).launch,
+                      lambda: gmm.plain_gmm(dy_m, w1, gs, transpose_rhs=True),
+                      library_grouped_mm(dy_m, w1.transpose(1, 2), offs, BF16),
+                      lambda: [torch.mm(dy_m[a:b], w1[e].t()) for e, a, b in groups], nbytes(dy_m, w1) + n * H * 2),
+        "tgmm": (gmm.TgmmCall(x, dy_m, gs, E).launch, lambda: gmm.plain_tgmm(x, dy_m, gs, E),
+                 library_grouped_mm(x.t(), dy_m, offs, BF16),
+                 lambda: [torch.mm(x[a:b].t(), dy_m[a:b]) for e, a, b in groups], nbytes(x, dy_m) + E * H * M * 4),
+    }
+    out = {}
+    for name, (kernel, plain, library, loop, moved) in timed.items():
+        flops = 2.0 * n * H * M
+        ms = cuda_time_ms(kernel)
+        plain_ms = cuda_time_ms(plain, warmup=1, reps=3)
+        if library is not None:
+            library_ms = cuda_time_ms(library)
+            label = "torch._grouped_mm with offs" + (" (bf16 output: the library writes mat_a's dtype)"
+                                                      if name == "tgmm" else "")
+        else:  # no single library call takes these operands
+            library_ms = cuda_time_ms(loop)
+            label = "a loop of torch.mm over the groups, bf16 output (not one call)"
+        b = bound(flops, moved)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library": label, **b,
+                     **worst[name]}
+        emit({"phase": "kernel_gmm", "case": f"timing balanced {name}", "kernel_ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "library": label, **b, "useful_tflop": flops / 1e12,
+              "kernel_tflops": flops / ms / 1e9, "kernel_share_of_bf16_peak": flops / ms / 1e9 / device_peak_tflops()})
+    del x, hm, dy_m, dy_h, w1, w2, timed
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_block(cfg, batch, grouped_dot=None, routes=None, first_ffn_input=None):
+    """A ``block_fn`` for the MoE ``model.apply``: the model's block, with
+    ``grouped_dot`` in place of the kernels if given, appending each layer's
+    top-k expert ids to ``routes`` and the first layer's FFN input to
+    ``first_ffn_input``."""
+    def block(layer, h):
+        def ffn(hh):
+            if routes is not None:
+                with torch.no_grad():
+                    routes.append(dropless.route(layer["moe"]["gate"], hh.reshape(-1, hh.shape[-1]),
+                                                 cfg.top_k)[2])
+            if first_ffn_input is not None and not first_ffn_input:
+                first_ffn_input.append(hh)
+            return moe_ffn(cfg, layer, hh, grouped_dot=grouped_dot)
+        return block_forward(cfg, layer, h, batch["indexes"], batch["segment_ids"], ffn=ffn)
+    return block
+
+
+def held_gmm(records: list):
+    """A ``grouped_dot`` that launches the gmm kernel, holds each call against
+    ``plain_gmm`` on the same inputs under the kernel_gmm bounds, and holds a
+    planted fault (the first group end one row on) to be refused by the same
+    check; appends one record a call and returns the kernel's output."""
+    def dot(x, w, group_sizes):
+        got = gmm.gmm(x, w, group_sizes)
+        want = gmm.plain_gmm(x, w, group_sizes)
+        r = gmm_checks(got, want, True)
+        planted = gmm.GmmCall(x, w, group_sizes)
+        planted.ends[0] += 1
+        planted.launch()
+        f = gmm_checks(planted.out, want, True)
+        records.append({"rows": x.shape[0], "k": x.shape[1], "n": w.shape[2],
+                        "group_sizes": group_sizes.tolist(), **r, "held": not gmm_refused(r, True),
+                        "planted_rel_l2": f["rel_l2"], "planted_outside": f["outside"],
+                        "planted_refused": gmm_refused(f, True)})
+        return got
+    return dot
+
+
+def gmm_counts() -> tuple:
+    return gmm.launches_gmm, gmm.launches_gmm_dgrad, gmm.launches_tgmm
+
+
+def moe_loss_of(model, params, batch, block_fn, moe_loss_coeff, train=False):
+    """(CE + moe_loss_coeff * aux, CE) over ``batch`` through ``block_fn``."""
+    cfg = model.config
+    hidden, aux = model.apply(params, batch["input_ids"], batch["indexes"], batch["segment_ids"], train=train,
+                              block_fn=block_fn, return_hidden=True)
+    nll, n, _ = fused_norm_head_ce(hidden, params["norm"], params["head"]["weight"], batch["labels"],
+                                   eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale)
+    ce = nll / n
+    return ce + moe_loss_coeff * aux["moe"], ce
+
+
+def phase_moe_grads(dev, config=None):
+    """Every param grad of a 1-layer MoE4 model at full width over one packed
+    row, through the kernels, against the same model with the plain grouped
+    matmul; the routing of the two runs must be identical."""
+    config = config if config is not None else moe_config(1)
+    model, params = initialize_model(config, dev, torch.Generator(device=dev).manual_seed(SEED + 10))
+    cfg = model.config
+    batch = packed_batch((TRAIN_B,), TRAIN_S, 0, cfg.vocab_size, np.random.RandomState(SEED + 10), dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def grads(grouped_dot):
+        routes = []
+        loss, _ = moe_loss_of(model, params, batch, moe_block(cfg, batch, grouped_dot, routes),
+                              config.loss.moe_loss_coeff, train=True)
+        loss.backward()
+        out = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return float(loss.detach()), out, routes
+
+    before = gmm_counts()
+    loss_k, g_kernel, r_kernel = grads(None)
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(gmm_counts(), before))
+    loss_p, g_plain, r_plain = grads(gmm.plain_gmm)
+    same_routing = all(torch.equal(a, b) for a, b in zip(r_kernel, r_plain))
+    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+           for a, b in zip(g_kernel, g_plain)]
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in g_kernel)
+    worst = int(np.argmax(rel))
+    want = (3 * cfg.num_layers,) * 3
+    emit({"phase": "moe_grads", "model": "configs/7B_MoE4_sft.py (MegaBlock-D)", "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "experts": cfg.num_experts, "top_k": cfg.top_k, "tokens": TRAIN_S,
+          "leaves": len(rel), "loss_kernel": loss_k, "loss_plain": loss_p, "same_routing": same_routing,
+          "max_rel_l2": rel[worst], "worst_leaf": worst, "median_rel_l2": float(np.median(rel)),
+          "bound": GRAD_REL_L2, "launches_gmm_dgrad_tgmm": list(launched), "finite": finite})
+    if launched != want or not same_routing:
+        raise AssertionError(f"gmm launches {launched} (want {want}) or routing differs ({same_routing})")
+    if not finite or not rel[worst] <= GRAD_REL_L2:
+        raise AssertionError(f"kernel-path MoE grads vs plain gmm: relative L2 {rel[worst]} (leaf {worst})")
+    del model, params, leaves, g_kernel, g_plain
+
+
+def phase_moe_scoring(dev, config=None):
+    """The MoE4 model at full width and depth scores two packed rows of 4096
+    tokens through ``make_eval_step``, plain and per token."""
+    config = config if config is not None else moe_config()
+    torch.cuda.reset_peak_memory_stats()
+    model, params = initialize_model(config, dev, torch.Generator(device=dev).manual_seed(SEED))
+    cfg = model.config
+    rng = np.random.RandomState(SEED + 1)
+    seg, pos = packed_segments(SCORE_B, SCORE_S, MAX_SEG, PAD, rng)
+    labels = rng.randint(0, cfg.vocab_size, (SCORE_B, SCORE_S))
+    labels[:, SCORE_S - PAD:] = -100
+    batch = {"input_ids": torch.from_numpy(rng.randint(0, cfg.vocab_size, (SCORE_B, SCORE_S))).to(dev),
+             "indexes": torch.from_numpy(pos).to(dev), "segment_ids": torch.from_numpy(seg).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    n_valid = SCORE_B * (SCORE_S - PAD)
+    step = make_eval_step(model)
+    step_tok = make_eval_step(model, per_token=True)
+
+    gmm.launches_gmm = gmm.launches_gmm_dgrad = gmm.launches_tgmm = splash.launches = 0
+    r = step(params, batch)
+    after_first = gmm_counts()
+    rt = step_tok(params, batch)
+    torch.cuda.synchronize()
+    launches = gmm_counts()
+    L = cfg.num_layers
+    if (after_first, launches, splash.launches) != ((3 * L, 0, 0), (6 * L, 0, 0), 2 * L):
+        raise AssertionError(f"gmm launches {after_first}, {launches}, splash {splash.launches}: "
+                             f"want {3 * L} gmm and {L} splash per forward, no backward kernels")
+    loss, loss_tok = float(r["loss"]), float(rt["loss"])
+    if not (math.isfinite(loss) and math.isfinite(loss_tok)) or abs(loss - loss_tok) > MOE_TOKEN_PATH_GAP:
+        raise AssertionError(f"MoE scoring loss {loss} / per-token path {loss_tok}")
+    if int(r["n_tokens"]) != n_valid or tuple(rt["nll"].shape) != (SCORE_B, SCORE_S):
+        raise AssertionError(f"n_tokens {int(r['n_tokens'])} != {n_valid} or nll {tuple(rt['nll'].shape)}")
+    if not bool(torch.isfinite(rt["nll"]).all()):
+        raise AssertionError("non-finite per-token nll")
+    del rt
+    seconds = cuda_time_ms(lambda: step(params, batch), warmup=1, reps=3) / 1e3
+    # activated flops (bench.py:73-81): the top_k experts' SwiGLU, mlp_ratio * top_k
+    fwd_tflops = get_megatron_flops(seconds, seq_len=SCORE_S, hidden_size=cfg.hidden_size, num_layers=L,
+                                    vocab_size=cfg.vocab_size, global_batch_size=SCORE_B,
+                                    mlp_ratio=cfg.mlp_ratio * cfg.top_k) / 3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    with torch.inference_mode():
+        r_kernel, r_plain, first = [], [], []
+        coeff = config.loss.moe_loss_coeff
+        _, ce_kernel = moe_loss_of(model, params, batch, moe_block(cfg, batch, None, r_kernel, first), coeff)
+        _, ce_plain = moe_loss_of(model, params, batch, moe_block(cfg, batch, gmm.plain_gmm, r_plain), coeff)
+        # layer 0's three gmm calls at this batch's routing (16,384 rows), each
+        # held against plain_gmm on its own inputs: the kernel's check on the
+        # scoring path, where the loss alone cannot tell a fault from rounding
+        calls = []
+        moe_ffn(cfg, params["blocks"][0], first[0], grouped_dot=held_gmm(calls))
+        # the same planted fault through all 32 layers: what the loss reads for it
+        shift = torch.tensor([1, -1] + [0] * (cfg.num_experts - 2), device=dev)
+        fault = lambda x, w, gs: gmm.gmm(x, w, gs + shift)  # noqa: E731
+        _, ce_fault = moe_loss_of(model, params, batch, moe_block(cfg, batch, fault), coeff)
+    del first
+    loss_plain = float(ce_plain)
+    diffs = [int((a != b).any(-1).sum()) for a, b in zip(r_kernel, r_plain)]
+    gap = abs(loss - loss_plain)
+    emit({"phase": "moe_scoring", "case": "layer 0 gmm calls vs plain_gmm", "calls": calls})
+    emit({"phase": "moe_scoring", "model": "configs/7B_MoE4_sft.py (MegaBlock-D)", "layers": L,
+          "hidden": cfg.hidden_size, "experts": cfg.num_experts, "top_k": cfg.top_k,
+          "params": sum(p.numel() for p in tree_leaves(params)), "tokens": SCORE_B * SCORE_S,
+          "valid_tokens": n_valid, "loss": loss, "loss_per_token_path": loss_tok,
+          "loss_kernel_recorded": float(ce_kernel), "loss_plain_gmm": loss_plain, "gap": gap,
+          "gap_bound": MOE_LOSS_GAP, "planted_fault_loss": float(ce_fault),
+          "planted_fault_gap": abs(float(ce_fault) - loss_plain), "routing_differences": sum(diffs),
+          "routing_differences_by_layer": diffs,
+          "routed_slots": SCORE_B * SCORE_S * cfg.top_k * L, "step_s": seconds,
+          "tokens_per_s": SCORE_B * SCORE_S / seconds, "fwd_tflops_activated": fwd_tflops,
+          "mfu": fwd_tflops / device_peak_tflops(), "peak_memory_gb": peak, "launches_gmm": launches[0]})
+    if len(calls) != 3 or not all(c["held"] and c["planted_refused"] for c in calls):
+        raise AssertionError(f"layer 0's gmm calls at the scoring shape: {calls}")
+    if diffs[0] or not gap <= MOE_LOSS_GAP:
+        raise AssertionError(f"kernel-path loss {loss} vs plain gmm {loss_plain}; layer-0 routing differs "
+                             f"on {diffs[0]} tokens (its input is the same in both)")
+    del model, params, batch
+    return launches[0]
+
+
+def phase_moe_training(dev, setup=moe_train_setup):
+    """The MoE4 configuration at 4 layers, 4 steps through the Trainer on one
+    fixed batch (``tools/profile_step.py::moe_train_setup``)."""
+    torch.cuda.reset_peak_memory_stats()
+    config, model, params, trainer, batch = setup(dev, SEED + 11)
+    cfg, data = model.config, config.data
+    micro_num, tokens = data.micro_num, data.micro_num * data.micro_bsz * data.seq_len
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+
+    def counts():
+        return (*gmm_counts(), splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq,
+                fused_adamw.launches)
+
+    gmm.launches_gmm = gmm.launches_gmm_dgrad = gmm.launches_tgmm = 0
+    splash.launches = splash.launches_bwd_dkdv = splash.launches_bwd_dq = fused_adamw.launches = 0
+    losses, times, moe_losses = [], [], []
+    L = cfg.num_layers
+    want = [3 * L * micro_num] * 3 + [L * micro_num] * 3 + [len(leaves)]
+    for step in range(1, TRAIN_STEPS + 1):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.execute_schedule(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = [a - b for a, b in zip(counts(), before)]
+        groups = {k: float(v) for k, v in m["grad_norm_groups"].items()}
+        rec = {"loss": float(m["loss"]), "moe_loss": float(m["moe_loss"]), "grad_norm": float(m["grad_norm"]),
+               "grad_norm_groups": groups, "found_inf": bool(m["found_inf"]), "lr": trainer.engine.current_lr,
+               "n_tokens": int(m["n_tokens"])}
+        emit({"phase": "moe_training", "step": step, "step_s": times[-1],
+              "launches_gmm_dgrad_tgmm_fwd_dkdv_dq_adamw": launched, **rec})
+        if launched != want:
+            raise AssertionError(f"step {step}: launches {launched}, want {want}")
+        if rec["found_inf"] or not all(map(math.isfinite, [rec["loss"], rec["grad_norm"], *groups.values()])):
+            raise AssertionError(f"step {step}: non-finite loss or grad norms: {rec}")
+        if not (math.isfinite(rec["moe_loss"]) and rec["moe_loss"] > 0) or rec["n_tokens"] != tokens:
+            raise AssertionError(f"step {step}: moe_loss {rec['moe_loss']} or {rec['n_tokens']} tokens")
+        losses.append(rec["loss"])
+        moe_losses.append(rec["moe_loss"])
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"the loss did not fall on every step: {losses}")
+    step_s = float(np.median(times[1:]))
+    tflops = get_megatron_flops(step_s, checkpoint=cfg.checkpoint > 0, seq_len=data.seq_len,
+                                hidden_size=cfg.hidden_size, num_layers=L, vocab_size=cfg.vocab_size,
+                                global_batch_size=micro_num * data.micro_bsz, mlp_ratio=cfg.mlp_ratio * cfg.top_k)
+    total = counts()
+    emit({"phase": "moe_training", "model": "configs/7B_MoE4_sft.py (MegaBlock-D)", "layers": L,
+          "cut": f"num_layers 32 -> {L} (18 bytes a parameter of state at 32 layers is ~365 GB)",
+          "params": n_params, "leaves": len(leaves), "micro_num": micro_num, "tokens_per_step": tokens,
+          "losses": losses, "step_s_median_2_4": step_s, "step_s": times, "tokens_per_s": tokens / step_s,
+          "tflops_activated": tflops, "mfu": tflops / device_peak_tflops(),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches_gmm_dgrad_tgmm_fwd_dkdv_dq_adamw": list(total)})
+    trajectory = {"loss": losses, "moe_loss": moe_losses}
+    del trainer, model, params, leaves, batch
+    return dict(zip(("gmm", "gmm_dgrad", "tgmm"), total[:3])), trajectory
+
+
+def phase_moe_training_plain(dev, kernel_trajectory, setup=moe_train_setup):
+    """``phase_moe_training``'s 4 steps again, from the same seed, with the
+    plain grouped matmul in place of the kernels (``GroupedMatmul`` on
+    ``plain_gmm`` / ``plain_tgmm``: the same custom backward); each step's
+    loss and ``moe_loss`` held against the kernel path's."""
+    use_plain = gmm._use_plain
+    gmm._use_plain = lambda x: True
+    try:
+        config, model, params, trainer, batch = setup(dev, SEED + 11)
+        before = gmm_counts()
+        plain = [(float(m["loss"]), float(m["moe_loss"]))
+                 for m in (trainer.execute_schedule(batch) for _ in range(TRAIN_STEPS))]
+        launched = [a - b for a, b in zip(gmm_counts(), before)]
+    finally:
+        gmm._use_plain = use_plain
+    del trainer, model, params, batch
+    loss_gap = [abs(a - b[0]) for a, b in zip(kernel_trajectory["loss"], plain)]
+    moe_gap = [abs(a - b[1]) for a, b in zip(kernel_trajectory["moe_loss"], plain)]
+    emit({"phase": "moe_training_plain", "losses_kernel": kernel_trajectory["loss"],
+          "losses_plain": [p[0] for p in plain], "moe_losses_kernel": kernel_trajectory["moe_loss"],
+          "moe_losses_plain": [p[1] for p in plain], "loss_gap": loss_gap, "moe_loss_gap": moe_gap,
+          "loss_gap_bound": MOE_TRAIN_LOSS_GAP, "moe_loss_gap_bound": MOE_TRAIN_MOE_LOSS_GAP,
+          "gmm_launches": launched})
+    if any(launched):
+        raise AssertionError(f"the plain trajectory launched gmm kernels: {launched}")
+    if not all(a <= b for a, b in zip(loss_gap + moe_gap, MOE_TRAIN_LOSS_GAP + MOE_TRAIN_MOE_LOSS_GAP)):
+        raise AssertionError(f"the kernel path's training left the plain path's: loss {loss_gap}, "
+                             f"moe_loss {moe_gap}")
+
+
 def main() -> int:
     phase_device()
     dev = torch.device("cuda")
@@ -675,7 +1135,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained = phase_training(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    gmm_kernels = phase_kernel_gmm(dev)
+    phase_moe_grads(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_scored = phase_moe_scoring(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_trained, trajectory = phase_moe_training(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_training_plain(dev, trajectory)
+
+    gmm_source = f"internevo_tpu_torch/csrc/{gmm.SOURCE}"
     bwd_source = f"internevo_tpu_torch/csrc/{splash.BWD_SOURCE}"
     bwd_replaces = "internevo_tpu/ops/pallas/splash_attention.py:984 (_bwd_kernel_bsd), :787 (_bwd_kernel)"
     bwd_common = {"plain_ms": bwd["plain_ms"], "plain": "plain_backward (dq, dk, dv together)",
@@ -695,6 +1170,15 @@ def main() -> int:
         {"name": "fused_adamw", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/fused_adamw.py",
          "replaces": "internevo_tpu/ops/pallas/fused_adamw.py:37 (_kernel)", "launches": trained["adamw"],
          **adamw},
+        {"name": "gmm", "route": "cuda", "source": gmm_source,
+         "replaces": "internevo_tpu/ops/pallas/gmm.py:122 (_gmm_kernel)", "launches": moe_trained["gmm"],
+         "launches_scoring": moe_scored, **gmm_kernels["gmm"]},
+        {"name": "gmm_dgrad", "route": "cuda", "source": gmm_source,
+         "replaces": "internevo_tpu/ops/pallas/gmm.py:122 (_gmm_kernel, transpose_rhs)",
+         "launches": moe_trained["gmm_dgrad"], **gmm_kernels["gmm_dgrad"]},
+        {"name": "tgmm", "route": "cuda", "source": gmm_source,
+         "replaces": "internevo_tpu/ops/pallas/gmm.py:151 (_tgmm_kernel)", "launches": moe_trained["tgmm"],
+         **gmm_kernels["tgmm"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

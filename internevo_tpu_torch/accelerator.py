@@ -10,7 +10,10 @@ from __future__ import annotations
 import torch
 
 
-def get_device(kind: str = "cuda") -> torch.device:
+def get_device(kind: str | torch.device = "cuda") -> torch.device:
+    """The device named by ``kind``; a ``torch.device`` is returned as it is."""
+    if isinstance(kind, torch.device):
+        return kind
     if kind == "cpu":
         return torch.device("cpu")
     if kind != "cuda":

@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..accelerator import get_device
 from ..models.base import ModelConfig, _dense, _norm, split_qkv
 from ..ops.rotary import apply_rotary, dynamic_ntk_frequencies, rope_frequencies
 
@@ -29,7 +30,10 @@ class InferenceParams:
     key_value_memory_dict: dict = dataclasses.field(default_factory=dict)
 
 
-def init_kv_cache(cfg: ModelConfig, batch_size: int, max_len: int, device="cpu") -> dict:
+def init_kv_cache(cfg: ModelConfig, batch_size: int, max_len: int, device="cuda") -> dict:
+    """Zeroed k/v caches on ``device``: the card unless the caller asks for the
+    CPU; a CUDA request without a card raises."""
+    device = get_device(device)
     shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_attention_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}

@@ -25,13 +25,17 @@ def _micro_loss_and_metrics(model: ModelDef, params, micro, label_smoothing: flo
                             is_train: bool = True, chunk_size: int | None = None):
     """(loss, (ce_loss, n_valid, n_correct, moe_loss)): the fused
     norm+head+CE for RMSNorm models, logits + ``cross_entropy_loss``
-    otherwise.  The port has no MoE model yet, so moe_loss is 0 and the loss
-    is the CE loss."""
+    otherwise.  An MoE model returns ``(hidden or logits, {"moe": aux})``;
+    the loss is then ce_loss + moe_loss_coeff * aux, and dense models have
+    moe_loss 0."""
     cfg = model.config
     moe_loss = torch.zeros((), dtype=torch.float32, device=micro["input_ids"].device)
     if fused_ce and cfg.norm_type == "rmsnorm":
         hidden = model.apply(params, micro["input_ids"], micro["indexes"], micro["segment_ids"],
                              train=is_train, return_hidden=True)
+        if isinstance(hidden, tuple):
+            hidden, aux = hidden
+            moe_loss = aux.get("moe", moe_loss)
         nll_sum, n_valid, n_correct = fused_norm_head_ce(
             hidden, params["norm"], params["head"]["weight"], micro["labels"],
             eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale,
@@ -41,6 +45,9 @@ def _micro_loss_and_metrics(model: ModelDef, params, micro, label_smoothing: flo
 
     logits = model.apply(params, micro["input_ids"], micro["indexes"], micro["segment_ids"],
                          train=is_train)
+    if isinstance(logits, tuple):
+        logits, aux = logits
+        moe_loss = aux.get("moe", moe_loss)
     flat_logits = logits.reshape(-1, logits.shape[-1])
     labels = micro["labels"].reshape(-1)
     ce_loss, n_valid = cross_entropy_loss(flat_logits, labels, label_smoothing=label_smoothing)
@@ -121,16 +128,16 @@ def make_eval_step(model: ModelDef, label_smoothing: float = 0.0, per_token: boo
                 model, params, batch, label_smoothing, is_train=False, chunk_size=chunk_size)
             return {"loss": ce_loss, "n_tokens": n_valid, "n_correct": n_correct}
 
-        if cfg.norm_type == "rmsnorm":
+        if cfg.num_experts <= 1 and cfg.norm_type == "rmsnorm":
             hidden = model.apply(params, batch["input_ids"], batch["indexes"],
                                  batch["segment_ids"], train=False, return_hidden=True)
             nll, cor = fused_norm_head_nll_tokens(
                 hidden, params["norm"], params["head"]["weight"], batch["labels"],
                 eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale,
                 norm_head=cfg.norm_head, label_smoothing=label_smoothing, chunk_size=chunk_size)
-        else:
-            logits = model.apply(params, batch["input_ids"], batch["indexes"],
-                                 batch["segment_ids"], train=False).float()
+        else:  # the JAX step's logits path, which MoE models take (no_pipeline.py:187-200)
+            out = model.apply(params, batch["input_ids"], batch["indexes"], batch["segment_ids"], train=False)
+            logits = (out[0] if isinstance(out, tuple) else out).float()
             lab = batch["labels"]
             valid = lab != -100
             safe = torch.where(valid, lab, torch.zeros_like(lab)).long()

@@ -39,8 +39,8 @@ _DTYPES = {"torch.bfloat16": torch.bfloat16, "torch.float16": torch.float16,
 
 @dataclasses.dataclass
 class ModelConfig:
-    """The dense-model fields of the JAX ``ModelConfig`` (the reference
-    ``build_model_with_cfg`` kwargs, ``modeling_internlm.py:463-549``).
+    """The dense-model and MoE fields of the JAX ``ModelConfig`` (the
+    reference ``build_model_with_cfg`` kwargs, ``modeling_internlm.py:463-549``).
     ``checkpoint``, ``drop_rate`` and ``attn_drop_rate`` are read only to
     refuse training with them (``model_forward``)."""
 
@@ -78,6 +78,14 @@ class ModelConfig:
     ffn_other_init_std: float = 0.0015
     out_head_init_std: float = 0.0052
     no_bias: bool = False
+    # MoE knobs that dropless routing reads (used by modeling_moe; the JAX
+    # ModelConfig's, models/base.py:116-128).  The capacity and noise knobs
+    # come with the GShard routing that reads them
+    num_experts: int = 1
+    top_k: int = 2
+    num_shared_experts: int = 0
+    moe_drop_tokens: bool = True
+    moe_type: str = "GShard"  # GShard (capacity) | Dropless / MegaBlock-D (grouped matmul)
 
     def __post_init__(self):
         # config files may say checkpoint=True/False (ref 7B_sft.py comment)
@@ -112,11 +120,13 @@ def _normal(shape, std, generator, device):
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32) * std
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device, mlp: bool = True) -> dict:
     """Random parameters with the reference's init distributions
     (``modeling_internlm.py:154-180``), drawn from ``generator`` on ``device``
     (which must be the generator's device).  The numbers differ from JAX's
-    threefry draws; parity tests load the JAX tree through ``jax_bridge``."""
+    threefry draws; parity tests load the JAX tree through ``jax_bridge``.
+    ``mlp=False`` leaves out the dense w1/w2/w3 (an MoE model whose FFN is
+    all experts)."""
     H, M, D = cfg.hidden_size, cfg.mlp_hidden, cfg.head_dim
     qkv_out = H + 2 * cfg.num_kv_attention_heads * D
     big = lambda t: t.to(cfg.dtype)  # noqa: E731
@@ -132,15 +142,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
             "norm2": ones(H),
             "wqkv": {"weight": big(_normal((qkv_out, H), cfg.attn_wqkv_init_std, generator, device))},
             "out_proj": {"weight": big(_normal((H, H), out_std, generator, device))},
-            "w1": {"weight": big(_normal((M, H), cfg.ffn_uplayer_init_std, generator, device))},
-            "w3": {"weight": big(_normal((M, H), cfg.ffn_uplayer_init_std, generator, device))},
-            "w2": {"weight": big(_normal((H, M), w2_std, generator, device))},
         }
+        if mlp:
+            layer["w1"] = {"weight": big(_normal((M, H), cfg.ffn_uplayer_init_std, generator, device))}
+            layer["w3"] = {"weight": big(_normal((M, H), cfg.ffn_uplayer_init_std, generator, device))}
+            layer["w2"] = {"weight": big(_normal((H, M), w2_std, generator, device))}
         if cfg.qkv_bias:
             layer["wqkv"]["bias"] = zeros(qkv_out)
         if cfg.o_bias:
             layer["out_proj"]["bias"] = zeros(H)
-        if cfg.mlp_bias:
+        if mlp and cfg.mlp_bias:
             layer["w1"]["bias"] = zeros(M)
             layer["w3"]["bias"] = zeros(M)
             layer["w2"]["bias"] = zeros(H)
@@ -215,14 +226,19 @@ def mlp_block(cfg: ModelConfig, layer: dict, x):
 def block_forward(cfg: ModelConfig, layer: dict, x, positions, segment_ids,
                   mixer: Optional[Callable] = None, ffn: Optional[Callable] = None):
     """One pre-norm block (``modeling_internlm.py:189-236``); ``mixer``/``ffn``
-    replace the attention and the MLP."""
+    replace the attention and the MLP.  An MoE ``ffn`` returns (out, l_aux);
+    the block then returns (out, l_aux) too, as the JAX ``block_forward``."""
     mixer = mixer or (lambda h: attention_block(cfg, layer, h, positions, segment_ids))
     ffn = ffn or (lambda h: mlp_block(cfg, layer, h))
     residual = x.float() if cfg.residual_in_fp32 else x
     h = mixer(_norm(cfg, residual, layer["norm1"], layer.get("norm1_bias")))
     residual = (h + residual).to(residual.dtype)
-    out = ffn(_norm(cfg, residual, layer["norm2"], layer.get("norm2_bias"))) + residual
-    return out.to(torch.float32 if cfg.residual_in_fp32 else cfg.dtype)
+    ffn_out = ffn(_norm(cfg, residual, layer["norm2"], layer.get("norm2_bias")))
+    aux = None
+    if isinstance(ffn_out, tuple):
+        ffn_out, aux = ffn_out
+    out = (ffn_out + residual).to(torch.float32 if cfg.residual_in_fp32 else cfg.dtype)
+    return out if aux is None else (out, aux)
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, input_ids):

@@ -3,17 +3,25 @@
 JAX tree (``internevo_tpu/models/base.py:171-229``): block leaves stacked on a
 leading layer axis, dense kernels (in, out), head kernel (hidden, vocab).  The
 port: a list of per-layer dicts, ``torch.nn.Linear`` weights (out, in) under
-"weight", head weight (vocab, hidden).  Every transpose and unstacking between
-the two lives here.  Gradients share the param layout; optimizer states map
-their master/m/v trees the same way.  Leaves keep their dtype: bf16 arrays (``ml_dtypes``
-bfloat16, which ``torch.from_numpy`` rejects) travel through float32, which
-holds every bf16 value exactly.
+"weight", head weight (vocab, hidden).  The MoE subtree ``blocks["moe"]``
+(gate, expert stacks, residual coefficient) keeps the JAX layout, only
+unstacked per layer: the grouped-matmul kernel takes the experts as (E, K, N),
+and a transpose per call would copy them.  Every transpose and unstacking
+between the two lives here.  Gradients share the param layout; optimizer
+states map their master/m/v trees the same way.  Leaves keep their dtype: bf16
+arrays (``ml_dtypes`` bfloat16, which ``torch.from_numpy`` rejects) travel
+through float32, which holds every bf16 value exactly.
+
+The functions that make tensors put them on the card unless the caller asks
+for the CPU (``device="cpu"``, as the tests do), and raise without a card.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..accelerator import get_device
 
 _LINEARS = ("wqkv", "out_proj", "w1", "w2", "w3")
 
@@ -37,8 +45,23 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_jax(tree: dict, device="cpu") -> dict:
+def _layer_of(tree, i: int, device):
+    """Layer ``i`` of a stacked subtree, in the same layout."""
+    if isinstance(tree, dict):
+        return {k: _layer_of(v, i, device) for k, v in tree.items()}
+    return _to_torch(np.asarray(tree)[i], device)
+
+
+def _stack(trees: list):
+    """The per-layer subtrees stacked back on a leading layer axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([_to_numpy(t) for t in trees])
+
+
+def params_from_jax(tree: dict, device="cuda") -> dict:
     """JAX param tree (numpy or jax arrays) -> the port's params on ``device``."""
+    device = get_device(device)
     blocks = tree["blocks"]
     n_layers = int(np.asarray(blocks["norm1"]).shape[0])
     layers = []
@@ -50,7 +73,7 @@ def params_from_jax(tree: dict, device="cpu") -> dict:
                 if "bias" in leaf:
                     layer[name]["bias"] = _to_torch(np.asarray(leaf["bias"])[i], device)
             else:
-                layer[name] = _to_torch(np.asarray(leaf)[i], device)
+                layer[name] = _layer_of(leaf, i, device)
         layers.append(layer)
     params = {
         "embedding": {"weight": _to_torch(tree["embedding"]["weight"], device)},
@@ -73,7 +96,7 @@ def params_to_numpy(params: dict) -> dict:
             if "bias" in layers[0][name]:
                 blocks[name]["bias"] = np.stack([_to_numpy(lyr[name]["bias"]) for lyr in layers])
         else:
-            blocks[name] = np.stack([_to_numpy(lyr[name]) for lyr in layers])
+            blocks[name] = _stack([lyr[name] for lyr in layers])
     tree = {
         "embedding": {"weight": _to_numpy(params["embedding"]["weight"])},
         "blocks": blocks,
@@ -94,7 +117,8 @@ def opt_state_to_numpy(state: dict) -> dict:
     return {k: params_to_numpy(v) if k in _OPT_TREES else _to_numpy(v) for k, v in state.items()}
 
 
-def opt_state_from_jax(state: dict, device="cpu") -> dict:
+def opt_state_from_jax(state: dict, device="cuda") -> dict:
     """A JAX optimizer state (numpy or jax arrays) -> the port's, on ``device``."""
+    device = get_device(device)
     return {k: params_from_jax(v, device) if k in _OPT_TREES else _to_torch(v, device)
             for k, v in state.items()}

@@ -1,0 +1,229 @@
+"""Grouped matmul for the dropless MoE: the CUDA kernels' wrappers, their
+plain versions, and the autograd Function that joins them.
+
+Counterpart of ``internevo_tpu/ops/pallas/gmm.py``.  Rows sorted by expert
+meet their expert's weights::
+
+    gmm:   out[i] = x[i] @ w[g(i)]          (w: (E, K, N); transpose_rhs: @ w[g(i)]ᵀ)
+    tgmm:  dw[e]  = Σ_{i ∈ e} x[i]ᵀ dy[i]    (fp32; exactly 0 for an empty group)
+
+``group_sizes`` (E,) gives the rows of each group in order; rows past
+``sum(group_sizes)`` belong to the last group, as the TPU kernel's padded
+rows do (``gmm.py::_metadata``).  Products accumulate in fp32 and round once
+to ``out_dtype``.
+
+Dispatch is on the tensors' device and nothing else: CPU tensors run the
+plain versions (``plain_gmm`` / ``plain_tgmm``, one fp32 matmul per group),
+CUDA tensors launch ``csrc/gmm.cu`` or raise.  The kernels take bf16
+operands, contiguous, with every feature dim a multiple of 8; the wrappers
+read ``group_sizes`` only on the device (a cumulative sum), so no call waits
+on the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import load
+
+SOURCE = "gmm.cu"
+OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+# kernel launches; the plain versions never count
+launches_gmm = 0          # gmm forward (transpose_rhs False)
+launches_gmm_dgrad = 0    # gmm with transpose_rhs (the input grad)
+launches_tgmm = 0         # tgmm (the weight grad)
+
+
+# ------------------------------------------------------------ plain version
+
+
+def _host_sizes(group_sizes, n: int) -> list[int]:
+    """Group sizes on the host, the last group taking the rows past the sum."""
+    sizes = [int(s) for s in group_sizes.tolist()]
+    sizes[-1] += n - sum(sizes)
+    return sizes
+
+
+def plain_gmm(x, w, group_sizes, *, transpose_rhs: bool = False, out_dtype=None):
+    """Plain torch ``gmm``: one fp32 matmul per group, one cast.  Differentiable
+    in x and w by autograd."""
+    F = w.shape[1] if transpose_rhs else w.shape[2]
+    outs, start = [], 0
+    for e, size in enumerate(_host_sizes(group_sizes, x.shape[0])):
+        if size:
+            we = w[e].float()
+            outs.append(x[start:start + size].float() @ (we.T if transpose_rhs else we))
+            start += size
+    out = torch.cat(outs) if outs else x.new_zeros(0, F, dtype=torch.float32)
+    return out.to(out_dtype or x.dtype)
+
+
+def plain_tgmm(x, dy, group_sizes, E: int):
+    """Plain torch ``tgmm``: (E, K, N) fp32, zero for an empty group."""
+    out = torch.zeros(E, x.shape[1], dy.shape[1], dtype=torch.float32, device=x.device)
+    start = 0
+    for e, size in enumerate(_host_sizes(group_sizes, x.shape[0])):
+        if size:
+            out[e] = x[start:start + size].float().T @ dy[start:start + size].float()
+            start += size
+    return out
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def _check_operand(name, t, dims, device):
+    if t.dim() != dims:
+        raise ValueError(f"{name} must be {dims}-D: {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA gmm kernels take bf16 operands; {name} is {t.dtype}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if any(s % 8 for s in t.shape[1:]):
+        raise ValueError(f"the CUDA gmm kernels take feature dims that are multiples of 8; "
+                         f"{name} is {tuple(t.shape)}")
+
+
+def _group_ends(group_sizes, E: int, device):
+    """The int32 cumulative sum of ``group_sizes``, computed on the device."""
+    if group_sizes.shape != (E,) or group_sizes.device != device:
+        raise ValueError(f"group_sizes must be ({E},) on {device}: {tuple(group_sizes.shape)} "
+                         f"on {group_sizes.device}")
+    return torch.cumsum(group_sizes, 0, dtype=torch.int32)
+
+
+def _fn(name: str, n_ptrs: int, n_ints: int):
+    """A C entry point of ``csrc/gmm.cu``, built and loaded on first use."""
+    fn = getattr(load(SOURCE), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    return fn
+
+
+def _run(fn, device, args, what: str) -> None:
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+class GmmCall:
+    """The prepared operands of one gmm (group ends, output, argument list);
+    ``launch`` launches the kernel on them.  ``ends`` is the device tensor the
+    kernel reads."""
+
+    def __init__(self, x, w, group_sizes, transpose_rhs: bool = False, out_dtype=None):
+        out_dtype = out_dtype or x.dtype
+        _check_operand("x", x, 2, x.device)
+        _check_operand("w", w, 3, x.device)
+        E = w.shape[0]
+        Kc, F = (w.shape[2], w.shape[1]) if transpose_rhs else (w.shape[1], w.shape[2])
+        if x.shape[1] != Kc:
+            raise ValueError(f"x {tuple(x.shape)} does not contract with w {tuple(w.shape)} "
+                             f"(transpose_rhs={transpose_rhs})")
+        if out_dtype not in OUT_DTYPES:
+            raise TypeError(f"the CUDA gmm kernel writes bf16 or fp32, not {out_dtype}")
+        load(SOURCE)  # built before any work: a machine without the toolkit fails here
+        self.ends = _group_ends(group_sizes, E, x.device)
+        self.out = torch.empty(x.shape[0], F, dtype=out_dtype, device=x.device)
+        self.transpose_rhs = transpose_rhs
+        self.device = x.device
+        self.args = [x.data_ptr(), w.data_ptr(), self.ends.data_ptr(), self.out.data_ptr(),
+                     x.shape[0], Kc, F, E, int(transpose_rhs), int(out_dtype == torch.float32)]
+        self.inputs = (x, w)  # kept alive while the kernel may read them
+
+    def launch(self) -> None:
+        global launches_gmm, launches_gmm_dgrad
+        if self.out.shape[0] == 0:
+            return
+        _run(_fn("gmm_bf16", 4, 6), self.device, self.args, "gmm")
+        if self.transpose_rhs:
+            launches_gmm_dgrad += 1
+        else:
+            launches_gmm += 1
+
+
+class TgmmCall:
+    """The prepared operands of one tgmm; ``launch`` launches the kernel."""
+
+    def __init__(self, x, dy, group_sizes, E: int):
+        _check_operand("x", x, 2, x.device)
+        _check_operand("dy", dy, 2, x.device)
+        if dy.shape[0] != x.shape[0]:
+            raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} differ in rows")
+        load(SOURCE)
+        self.ends = _group_ends(group_sizes, E, x.device)
+        self.out = torch.empty(E, x.shape[1], dy.shape[1], dtype=torch.float32, device=x.device)
+        self.device = x.device
+        self.args = [x.data_ptr(), dy.data_ptr(), self.ends.data_ptr(), self.out.data_ptr(),
+                     x.shape[0], x.shape[1], dy.shape[1], E]
+        self.inputs = (x, dy)
+
+    def launch(self) -> None:
+        global launches_tgmm
+        _run(_fn("tgmm_bf16", 4, 4), self.device, self.args, "tgmm")
+        launches_tgmm += 1
+
+
+# ------------------------------------------------------------------ dispatch
+
+
+def _use_plain(x) -> bool:
+    """True for CPU tensors (the plain versions), False for CUDA tensors (the
+    kernels); any other device is refused."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gmm runs on cpu (plain) or cuda (kernel), not {x.device}")
+    return x.device.type == "cpu"
+
+
+def gmm(x, w, group_sizes, *, transpose_rhs: bool = False, out_dtype=None):
+    """x: (n, Kc); w: (E, Kc, N), or (E, N, Kc) with ``transpose_rhs``;
+    group_sizes: (E,) int.  Returns (n, N) in ``out_dtype`` (default x's)."""
+    if _use_plain(x):
+        return plain_gmm(x, w, group_sizes, transpose_rhs=transpose_rhs, out_dtype=out_dtype)
+    call = GmmCall(x, w, group_sizes, transpose_rhs, out_dtype)
+    call.launch()
+    return call.out
+
+
+def tgmm(x, dy, group_sizes, E: int):
+    """x: (n, K); dy: (n, N); group_sizes: (E,) int.  Returns (E, K, N) fp32."""
+    if _use_plain(x):
+        return plain_tgmm(x, dy, group_sizes, E)
+    call = TgmmCall(x, dy.contiguous(), group_sizes, E)
+    call.launch()
+    return call.out
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """out = gmm(x, w); the JAX ``grouped_matmul`` custom_vjp: dx by gmm with
+    the rhs transposed, dW by tgmm in fp32 cast to w's dtype (``gmm.py:342-347``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return gmm(x, w, group_sizes, out_dtype=x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gmm(dy, w, group_sizes, transpose_rhs=True, out_dtype=x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = tgmm(x, dy, group_sizes, w.shape[0]).to(w.dtype)
+        return dx, dw, None
+
+
+def grouped_matmul(x, w, group_sizes):
+    """``out[i] = x[i] @ w[g(i)]`` for rows sorted by group, differentiable in
+    x and w.  x: (n, K); w: (E, K, N); group_sizes: (E,) int summing to at
+    most n.  Returns (n, N) in x's dtype."""
+    return GroupedMatmul.apply(x, w, group_sizes)

@@ -4,20 +4,25 @@ JAX step).
 
     python -m internevo_tpu_torch.tools.profile_step train
     python -m internevo_tpu_torch.tools.profile_step score
+    python -m internevo_tpu_torch.tools.profile_step moe_train
+    python -m internevo_tpu_torch.tools.profile_step moe_score
 
 ``train``: the training slice's setup (``train_setup``): ``configs/7B_sft.py``
 at full width and 8 layers, one step of 4 micro-batches of one packed
 4096-token row through ``initialize_*`` and ``Trainer.execute_schedule``.
 ``score``: the same config at full depth, one ``make_eval_step`` over two
-packed rows of 4096 tokens.  Weights are random from a seed.  The step runs
+packed rows of 4096 tokens.  ``moe_train`` and ``moe_score``: the same two
+on ``configs/7B_MoE4_sft.py`` routed dropless (``moe_config``), training at
+4 layers (``moe_train_setup``), scoring at full depth.  Weights are random
+from a seed.  The step runs
 twice untraced (kernel builds, allocator), then once under
 ``torch.profiler`` with CPU and CUDA activities.  One JSON line: the card and
 its power limit, the traced step's wall seconds, the device's busy seconds
 (the union of kernel intervals) and busy share, kernel milliseconds and
 launches by class, and the slowest kernels.
 
-``train_setup`` and ``packed_batch`` are also what ``chip_smoke.py`` trains
-with.
+``train_setup``, ``moe_train_setup`` and ``packed_batch`` are also what
+``chip_smoke.py`` trains with.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from ..models.base import ModelDef
 from ..train.pipeline import initialize_model, initialize_optimizer, initialize_trainer
 
 CONFIG = Path(__file__).resolve().parents[2] / "configs" / "7B_sft.py"
+MOE_CONFIG = CONFIG.with_name("7B_MoE4_sft.py")
 SEED = 0
 ROW, MAX_SEG, SCORE_ROWS, SCORE_PAD = 4096, 2048, 2, 357
 # training: 7B_sft at full width, depth cut to 8 layers so that the 18 bytes a
@@ -44,12 +50,23 @@ ROW, MAX_SEG, SCORE_ROWS, SCORE_PAD = 4096, 2048, 2, 357
 # 20-step lr schedule, so that the config's 500-step warm-up does not hold lr
 # near 0 over a few steps
 TRAIN_LAYERS, TRAIN_LR_STEPS = 8, 20
-# kernel classes, first match of a name fragment wins
+# MoE training: 7B_MoE4_sft at full width, depth cut to 4 layers: 845.2M
+# embedding and head params and 608.2M a layer, 59 GB of state at 18 bytes a
+# parameter, plus bf16 grads and one micro-batch's activations
+MOE_TRAIN_LAYERS = 4
+# the reference's name for dropless MegaBlocks, which the model routes through
+# the grouped matmul; the config file says "GShard" (capacity routing)
+MOE_TYPE = "MegaBlock-D"
+# kernel classes, first match of a name fragment wins ("tgmm_kernel" holds
+# "gmm_kernel", and none of the three holds "gemm")
 CLASSES = (
     ("splash_fwd", ("splash_fwd_kernel",)),
     ("splash_bwd_dkdv", ("splash_bwd_dkdv_kernel",)),
     ("splash_bwd_dq", ("splash_bwd_dq_kernel",)),
     ("fused_adamw", ("adamw_kernel",)),
+    ("gmm_dgrad", ("gmm_dgrad_kernel",)),
+    ("tgmm", ("tgmm_kernel",)),
+    ("gmm", ("gmm_kernel",)),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("reduce", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -137,12 +154,27 @@ def train_config(num_layers: int = TRAIN_LAYERS) -> Config:
     return config
 
 
-def train_setup(device, seed: int = SEED) -> tuple[Config, ModelDef, dict, Trainer, dict]:
+def moe_config(num_layers: int | None = None) -> Config:
+    """``configs/7B_MoE4_sft.py`` routed dropless (``MOE_TYPE``, as
+    ``bench.py`` sets ``moe_type`` for its MoE presets), the rest of the file
+    unchanged (its ``moe`` block's top_k 2, ``moe_loss_coeff`` 0.1); depth
+    cut to ``num_layers`` when given, and the 20-step lr schedule."""
+    config = Config.from_file(MOE_CONFIG)
+    config.model.moe_type = MOE_TYPE
+    if num_layers is not None:
+        config.model.num_layers = num_layers
+    config.lr_scheduler.total_steps = TRAIN_LR_STEPS
+    return config
+
+
+def train_setup(device, seed: int = SEED, config: Config | None = None
+                ) -> tuple[Config, ModelDef, dict, Trainer, dict]:
     """(config, model, params, trainer, batch) of the training slice: the
-    ``train_config`` model and optimizer through ``initialize_*``, and one
-    step's batch of ``micro_num`` packed rows of ``micro_bsz * seq_len``
-    tokens, shaped (micro_num, 1, S), all drawn from ``seed``."""
-    config = train_config()
+    ``train_config`` model (or ``config``'s) and optimizer through
+    ``initialize_*``, and one step's batch of ``micro_num`` packed rows of
+    ``micro_bsz * seq_len`` tokens, shaped (micro_num, 1, S), all drawn from
+    ``seed``."""
+    config = config if config is not None else train_config()
     model, params = initialize_model(config, device, torch.Generator(device=device).manual_seed(seed))
     opt_state, lr_sched, beta2_sched = initialize_optimizer(model, params, config)
     trainer = initialize_trainer(model, params, opt_state, lr_sched, beta2_sched, config)
@@ -152,32 +184,40 @@ def train_setup(device, seed: int = SEED) -> tuple[Config, ModelDef, dict, Train
     return config, model, params, trainer, batch
 
 
-def train_step():
-    config, _, _, trainer, batch = train_setup("cuda")
+def moe_train_setup(device, seed: int = SEED) -> tuple[Config, ModelDef, dict, Trainer, dict]:
+    """``train_setup`` on ``moe_config(MOE_TRAIN_LAYERS)``."""
+    return train_setup(device, seed, moe_config(MOE_TRAIN_LAYERS))
+
+
+def train_step(config: Config):
+    config, model, _, trainer, batch = train_setup("cuda", SEED, config)
     d = config.data
-    return lambda: trainer.execute_schedule(batch), d.micro_num * d.micro_bsz * d.seq_len
+    return lambda: trainer.execute_schedule(batch), d.micro_num * d.micro_bsz * d.seq_len, model.config.num_layers
 
 
-def score_step():
-    config = Config.from_file(CONFIG)
+def score_step(config: Config):
     model, params = initialize_model(config, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
     batch = packed_batch((SCORE_ROWS,), ROW, SCORE_PAD, model.config.vocab_size, np.random.RandomState(SEED))
     step = make_eval_step(model)
-    return lambda: step(params, batch), SCORE_ROWS * ROW
+    return lambda: step(params, batch), SCORE_ROWS * ROW, model.config.num_layers
+
+
+PATHS = {"train": lambda: train_step(train_config()), "score": lambda: score_step(Config.from_file(CONFIG)),
+         "moe_train": lambda: train_step(moe_config(MOE_TRAIN_LAYERS)), "moe_score": lambda: score_step(moe_config())}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("path", choices=("train", "score"))
+    ap.add_argument("path", choices=tuple(PATHS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    step, tokens = train_step() if args.path == "train" else score_step()
+    step, tokens, layers = PATHS[args.path]()
     out = profile(step)
-    print(json.dumps({"path": args.path, "layers": TRAIN_LAYERS if args.path == "train" else 32,
+    print(json.dumps({"path": args.path, "layers": layers,
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "tokens": tokens, "tokens_per_s_traced": tokens / out["wall_s"],
                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, **out}), flush=True)

@@ -25,6 +25,8 @@ from ..solver.lr_scheduler import Beta2Scheduler, build_lr_scheduler
 from ..solver.optimizer import AdamWConfig, GradScalerConfig, init_optimizer_state
 from ..utils.registry import MODEL_INITIALIZER
 
+_MOE_FIELDS = {"top_k": "top_k", "drop_tokens": "moe_drop_tokens"}
+
 
 def initialize_model(config: Config, device, generator: torch.Generator) -> tuple[ModelDef, dict]:
     """Build the registered model of ``config.model_type`` (default
@@ -32,10 +34,14 @@ def initialize_model(config: Config, device, generator: torch.Generator) -> tupl
     ``generator`` on ``device``.  Packed segments are never longer than
     ``data.seq_len``, which becomes ``max_segment_len`` unless the model
     config sets it."""
-    device = get_device(device) if isinstance(device, str) else torch.device(device)
+    device = get_device(device)
     model_cfg = dict(config.model)
     if "max_segment_len" not in model_cfg and "data" in config:
         model_cfg["max_segment_len"] = config.data.get("seq_len", None)
+    # the top-level `moe = dict(...)` block (reference 7B_MoE4_sft.py:204) maps
+    # onto the model's moe fields, as JAX train/pipeline.py:49-59 does
+    moe = config.get("moe") or {}
+    model_cfg.update({dst: moe[src] for src, dst in _MOE_FIELDS.items() if src in moe})
     model = MODEL_INITIALIZER.get_module(config.get("model_type", "INTERNLM"))(**model_cfg)
     return model, model.init(generator, device)
 

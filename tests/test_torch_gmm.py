@@ -1,0 +1,132 @@
+"""The port's grouped matmul (``internevo_tpu_torch/ops/cuda/gmm.py``) on the
+CPU, where its wrappers run the plain versions, against the JAX kernel
+(``internevo_tpu/ops/pallas/gmm.py``, Pallas in interpret mode) and
+``lax.ragged_dot``, with the cases of ``tests/test_ops/test_gmm.py``: empty
+groups, one group owning every row, rows that are not a tile multiple, rows
+past ``sum(group_sizes)``, bf16.
+
+Tolerances, as there: forward atol 2e-5, dx 2e-4, dW 2e-3 (fp32 sums over a
+few hundred rows in another order), and an empty group's dW exactly 0.  bf16
+outputs: both sides sum in fp32 and round once, so they differ by at most one
+bf16 step where the fp32 sums straddle a rounding boundary (rtol 2**-7)."""
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from internevo_tpu.ops.pallas.gmm import _gmm_call, _tgmm_call, grouped_matmul as jax_grouped_matmul
+from internevo_tpu_torch.ops.cuda import gmm
+
+BF16_RTOL = 2.0**-7
+
+
+def _inputs(n, K, N, E, seed=0, dtype=np.float32):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, K).astype(np.float32).astype(dtype)
+    w = (0.05 * rng.randn(E, K, N)).astype(np.float32).astype(dtype)
+    dy = rng.randn(n, N).astype(np.float32).astype(dtype)
+    return x, w, dy
+
+
+def _t(a):
+    a = np.asarray(a)
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _ragged(x, w, gs):
+    return jax.lax.ragged_dot(jnp.asarray(x), jnp.asarray(w), jnp.asarray(gs), preferred_element_type=jnp.float32)
+
+
+@pytest.mark.parametrize("gs", [
+    [100, 0, 300, 50, 250, 0, 200, 100],  # empty groups
+    [1000, 0, 0, 0, 0, 0, 0, 0],          # one group owns every row
+    [125, 125, 125, 125, 125, 125, 125, 125],
+], ids=["empty_groups", "one_group", "balanced"])
+def test_plain_gmm_matches_jax(gs):
+    n, K, N, E = 1000, 256, 384, 8
+    gs = np.asarray(gs, np.int32)
+    x, w, _ = _inputs(n, K, N, E)
+    out = gmm.gmm(_t(x), _t(w), torch.from_numpy(gs)).numpy()
+    np.testing.assert_allclose(out, np.asarray(jax_grouped_matmul(jnp.asarray(x), jnp.asarray(w),
+                                                                  jnp.asarray(gs), True)), atol=2e-5)
+    np.testing.assert_allclose(out, np.asarray(_ragged(x, w, gs)), atol=2e-5)
+    assert gmm.launches_gmm == 0
+
+
+def test_grouped_matmul_grads_match_jax():
+    """The autograd Function's backward (gmm with the rhs transposed, tgmm
+    cast to w's dtype) against ``jax.vjp`` of the Pallas kernel and of
+    ``ragged_dot``; group 1 is empty, so its dW is exactly 0."""
+    n, K, N, E = 512, 128, 256, 4
+    gs = np.asarray([200, 0, 112, 200], np.int32)
+    x, w, dy = _inputs(n, K, N, E, seed=1)
+    xt, wt = _t(x).requires_grad_(), _t(w).requires_grad_()
+    gmm.grouped_matmul(xt, wt, torch.from_numpy(gs)).backward(_t(dy))
+    jx, jw, jgs = jnp.asarray(x), jnp.asarray(w), jnp.asarray(gs)
+    _, f_k = jax.vjp(lambda a, b: jax_grouped_matmul(a, b, jgs, True), jx, jw)
+    _, f_r = jax.vjp(lambda a, b: _ragged(a, b, jgs), jx, jw)
+    for dx_j, dw_j in (f_k(jnp.asarray(dy)), f_r(jnp.asarray(dy))):
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), atol=2e-4)
+        np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dw_j), atol=2e-3)
+    assert wt.grad.dtype == torch.float32 and float(wt.grad[1].abs().max()) == 0.0
+
+
+def test_plain_gmm_bf16_row_padding():
+    """n not a multiple of the TPU kernel's 128-row tile; bf16 in and out."""
+    n, K, N, E = 300, 128, 128, 4
+    gs = np.asarray([37, 120, 143, 0], np.int32)
+    x, w, _ = _inputs(n, K, N, E, seed=2, dtype=ml_dtypes.bfloat16)
+    out = gmm.gmm(_t(x), _t(w), torch.from_numpy(gs))
+    assert out.shape == (n, N) and out.dtype == torch.bfloat16
+    want = np.asarray(jax_grouped_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(gs), True), np.float32)
+    np.testing.assert_allclose(out.float().numpy(), want, rtol=BF16_RTOL, atol=1e-6)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(_ragged(x, w, gs)), atol=0.15)
+
+
+def test_plain_gmm_rows_past_the_sum_use_the_last_group():
+    """Rows past sum(group_sizes) meet the last group's weights, as the TPU
+    kernel's padded rows do (``dropless.py:112-115``)."""
+    n, K, N, E = 300, 128, 256, 4
+    gs = np.asarray([37, 120, 100, 0], np.int32)
+    x, w, _ = _inputs(n, K, N, E, seed=3)
+    out = gmm.gmm(_t(x), _t(w), torch.from_numpy(gs)).numpy()
+    want = np.asarray(jax_grouped_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(gs), True))
+    np.testing.assert_allclose(out, want, atol=2e-5)
+    np.testing.assert_allclose(out[257:], x[257:] @ w[3], atol=2e-5)
+
+
+@pytest.mark.parametrize("gs", [[200, 0, 112, 200], [100, 50, 0, 90]], ids=["sum_n", "sum_below_n"])
+def test_plain_gmm_transpose_rhs_matches_jax(gs):
+    n, K, N, E = 512, 128, 256, 4
+    gs = np.asarray(gs, np.int32)
+    _, w, dy = _inputs(n, K, N, E, seed=4)
+    out = gmm.gmm(_t(dy), _t(w), torch.from_numpy(gs), transpose_rhs=True).numpy()
+    want = _gmm_call(jnp.asarray(dy), jnp.asarray(w), jnp.asarray(gs), transpose_rhs=True,
+                     out_dtype=jnp.float32, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(want), atol=2e-4)
+
+
+@pytest.mark.parametrize("gs", [[200, 0, 112, 200], [100, 50, 0, 90]], ids=["sum_n", "sum_below_n"])
+def test_plain_tgmm_matches_jax(gs):
+    n, K, N, E = 512, 128, 256, 4
+    gs = np.asarray(gs, np.int32)
+    x, _, dy = _inputs(n, K, N, E, seed=5)
+    out = gmm.tgmm(_t(x), _t(dy), torch.from_numpy(gs), E)
+    assert out.dtype == torch.float32 and out.shape == (E, K, N)
+    want = _tgmm_call(jnp.asarray(x), jnp.asarray(dy), jnp.asarray(gs), E, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-3)
+    for e in np.flatnonzero(gs == 0):
+        if e != E - 1:  # the last group also owns the rows past the sum
+            assert float(out[e].abs().max()) == 0.0
+    assert gmm.launches_tgmm == 0
+
+
+def test_gmm_refuses_other_devices():
+    x = torch.zeros(16, 8, device="meta")
+    with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
+        gmm.gmm(x, torch.zeros(2, 8, 8, device="meta"), torch.zeros(2, dtype=torch.int32, device="meta"))

@@ -1,0 +1,112 @@
+"""The CUDA grouped-matmul kernels (gmm forward, gmm with the rhs transposed,
+tgmm) against their plain versions, on the card.
+
+Needs an NVIDIA GPU with the CUDA toolkit (the kernels have no CPU mode);
+skips elsewhere.  On such a machine:
+
+    python -m pytest --noconftest tests/test_torch_gmm_cuda.py -q
+
+(``--noconftest``: the repo's conftest imports jax, which such a machine need
+not have.)
+
+Tolerances: bf16 outputs within rtol = atol = 1.6e-2 (both sum bf16 products
+in fp32 and round once; the sums run in another order, so a value near a
+rounding boundary may land one bf16 step away), fp32 outputs within 1e-5 of
+each tensor's scale; an empty group's dW is exactly 0.
+"""
+
+import pytest
+import torch
+
+from internevo_tpu_torch.ops.cuda import gmm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the gmm kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' fp32 matmuls in full fp32
+    return torch.device("cuda")
+
+
+def _inputs(dev, n, K, N, E, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, K, generator=g, device=dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn(E, K, N, generator=g, device=dev)).to(torch.bfloat16)
+    dy = torch.randn(n, N, generator=g, device=dev).to(torch.bfloat16)
+    return x, w, dy
+
+
+def _close_f32(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+CASES = {
+    "balanced": (1000, 256, 384, [250, 250, 250, 250]),
+    "empty_groups": (1000, 256, 384, [100, 0, 600, 300]),
+    "one_group": (777, 128, 264, [0, 0, 777, 0]),
+    "rows_past_the_sum": (300, 136, 128, [37, 120, 100, 0]),
+    "ragged_tiles": (1, 40, 24, [0, 1, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gmm_kernels_match_plain(dev, case):
+    n, K, N, gs = CASES[case]
+    x, w, dy = _inputs(dev, n, K, N, len(gs))
+    group_sizes = torch.tensor(gs, device=dev)
+    before = (gmm.launches_gmm, gmm.launches_gmm_dgrad, gmm.launches_tgmm)
+    out = gmm.gmm(x, w, group_sizes)
+    dx = gmm.gmm(dy, w, group_sizes, transpose_rhs=True)
+    out32 = gmm.gmm(x, w, group_sizes, out_dtype=torch.float32)
+    dw = gmm.tgmm(x, dy, group_sizes, len(gs))
+    torch.cuda.synchronize()
+    assert (gmm.launches_gmm, gmm.launches_gmm_dgrad, gmm.launches_tgmm) == (before[0] + 2, before[1] + 1,
+                                                                              before[2] + 1)
+    assert out.dtype == dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    torch.testing.assert_close(out.float(), gmm.plain_gmm(x, w, group_sizes).float(), rtol=1.6e-2, atol=1.6e-2)
+    torch.testing.assert_close(dx.float(), gmm.plain_gmm(dy, w, group_sizes, transpose_rhs=True).float(),
+                               rtol=1.6e-2, atol=1.6e-2)
+    _close_f32(out32, gmm.plain_gmm(x, w, group_sizes, out_dtype=torch.float32))
+    _close_f32(dw, gmm.plain_tgmm(x, dy, group_sizes, len(gs)))
+    for e, size in enumerate(gs[:-1]):
+        if size == 0:
+            assert bool((dw[e] == 0).all()), e
+
+
+def test_grouped_matmul_backward_launches_the_kernels(dev):
+    x, w, dy = _inputs(dev, 512, 128, 256, 4, seed=1)
+    group_sizes = torch.tensor([200, 0, 112, 200], device=dev)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (gmm.launches_gmm, gmm.launches_gmm_dgrad, gmm.launches_tgmm)
+    gmm.grouped_matmul(xg, wg, group_sizes).backward(dy)
+    torch.cuda.synchronize()
+    assert (gmm.launches_gmm, gmm.launches_gmm_dgrad, gmm.launches_tgmm) == tuple(b + 1 for b in before)
+    assert xg.grad.dtype == wg.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(xg.grad.float(), gmm.plain_gmm(dy, w, group_sizes, transpose_rhs=True).float(),
+                               rtol=1.6e-2, atol=1.6e-2)
+    torch.testing.assert_close(wg.grad.float(), gmm.plain_tgmm(x, dy, group_sizes, 4).to(torch.bfloat16).float(),
+                               rtol=1.6e-2, atol=1.6e-2)
+    assert float(wg.grad[1].float().abs().max()) == 0.0
+
+
+def test_gmm_is_deterministic(dev):
+    x, w, dy = _inputs(dev, 1024, 256, 512, 4, seed=2)
+    group_sizes = torch.tensor([500, 24, 0, 500], device=dev)
+    assert torch.equal(gmm.gmm(x, w, group_sizes), gmm.gmm(x, w, group_sizes))
+    assert torch.equal(gmm.tgmm(x, dy, group_sizes, 4), gmm.tgmm(x, dy, group_sizes, 4))
+
+
+def test_gmm_refuses_what_it_does_not_take(dev):
+    x, w, _ = _inputs(dev, 64, 128, 128, 2)
+    group_sizes = torch.tensor([32, 32], device=dev)
+    with pytest.raises(TypeError, match="bf16"):
+        gmm.gmm(x.float(), w.float(), group_sizes)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm.gmm(x[:, :100].contiguous(), w[:, :100].contiguous(), group_sizes)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm.gmm(x.t().contiguous().t(), w, group_sizes)
+    with pytest.raises(ValueError, match="group_sizes"):
+        gmm.gmm(x, w, group_sizes.cpu())

@@ -39,7 +39,7 @@ def _models(**over):
     tcfg = tbase.ModelConfig(**kw, dtype=torch.float32)
     tree = numpy_tree(jcfg, seed=3)
     jparams = jax.tree.map(jnp.asarray, tree)
-    tparams = params_from_jax(tree)
+    tparams = params_from_jax(tree, "cpu")
     jgen = jinf.SequenceGenerator((jbase.ModelDef(config=jcfg, init=None, apply=None), jparams),
                                   eos_token_id=-1)
     tgen = tinf.SequenceGenerator((tbase.make_model_def(tcfg), tparams), eos_token_id=-1)
@@ -58,7 +58,7 @@ def test_decode_step_matches_jax_and_full_forward():
     pos = torch.arange(S).repeat(B, 1)
     full = tbase.model_forward(tcfg, tparams, tids, pos, torch.ones(B, S, dtype=torch.int32))
     jcache = jinf.init_kv_cache(jcfg, B, S)
-    tcache = tinf.init_kv_cache(tcfg, B, S)
+    tcache = tinf.init_kv_cache(tcfg, B, S, "cpu")
     lj, jcache = jinf.model_decode_step(jcfg, jparams, jnp.asarray(ids[:, :8]), jcache, jnp.int32(0))
     lt, tcache = tinf.model_decode_step(tcfg, tparams, tids[:, :8], tcache, 0)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)

@@ -74,7 +74,7 @@ def _torch_batch(batch):
 def test_bridge_round_trip_exact(dtype):
     jcfg = jbase.ModelConfig(**TINY, num_kv_attention_heads=1, dtype=jnp.float32)
     tree = numpy_tree(jcfg, dtype=dtype)
-    params = params_from_jax(tree)
+    params = params_from_jax(tree, "cpu")
     assert params["blocks"][1]["wqkv"]["weight"].shape == (2 * 64 + 2 * 64, 128)
     want_dtype = torch.float32 if dtype is np.float32 else torch.bfloat16
     assert params["blocks"][0]["w1"]["weight"].dtype == want_dtype
@@ -102,7 +102,7 @@ def test_model_forward_logits(kv_heads, norm_type):
     lj = jbase.model_forward(jcfg, jax.tree.map(jnp.asarray, tree), jnp.asarray(batch["input_ids"]),
                              jnp.asarray(batch["indexes"]), jnp.asarray(batch["segment_ids"]), train=False)
     tb = _torch_batch(batch)
-    lt = tbase.model_forward(tcfg, params_from_jax(tree), tb["input_ids"], tb["indexes"], tb["segment_ids"])
+    lt = tbase.model_forward(tcfg, params_from_jax(tree, "cpu"), tb["input_ids"], tb["indexes"], tb["segment_ids"])
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4, atol=1e-4)
 
 
@@ -123,7 +123,7 @@ def test_eval_step(per_token, norm_type):
     rj = jsched.make_eval_step(jmodel, label_smoothing=0.1, per_token=per_token)(
         jax.tree.map(jnp.asarray, tree), jax.tree.map(jnp.asarray, batch))
     rt = tsched.make_eval_step(tmodel, label_smoothing=0.1, per_token=per_token, chunk_size=100)(
-        params_from_jax(tree), _torch_batch(batch))
+        params_from_jax(tree, "cpu"), _torch_batch(batch))
     np.testing.assert_allclose(float(rt["loss"]), float(rj["loss"]), rtol=5e-5)
     assert int(rt["n_tokens"]) == int(rj["n_tokens"]) == 2 * (128 - 20)
     assert int(rt["n_correct"]) == int(rj["n_correct"]) >= 2 * 34

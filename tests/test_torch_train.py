@@ -54,7 +54,7 @@ def test_model_grads_match_jax(kv_heads):
         return jnp.sum(logits * cot)
 
     jgrads = jax.grad(jloss)(jax.tree.map(jnp.asarray, tree))
-    params = params_from_jax(tree)
+    params = params_from_jax(tree, "cpu")
     for leaf in jax.tree.leaves(params):
         leaf.requires_grad_(True)
     tb = _torch_batch(batch)
@@ -79,7 +79,7 @@ def test_opt_state_bridge_round_trip():
     rng = np.random.RandomState(4)
     state = {**jax.tree.map(np.asarray, state),
              "m": jax.tree.map(lambda a: rng.randn(*a.shape).astype(np.float32), state["m"])}
-    tstate = opt_state_from_jax(state)
+    tstate = opt_state_from_jax(state, "cpu")
     assert tstate["m"]["blocks"][1]["wqkv"]["weight"].shape == (3 * 128, 128)
     back = opt_state_to_numpy(tstate)
     flat_a, tdef_a = jax.tree.flatten(state)
@@ -133,7 +133,7 @@ def test_tiny_trainer_matches_jax_trainer():
 
     tcfg = TConfig(config)
     tmodel, _ = tpipe.initialize_model(tcfg, "cpu", torch.Generator().manual_seed(0))
-    tparams = params_from_jax(tree)
+    tparams = params_from_jax(tree, "cpu")
     topt, tlr, tb2 = tpipe.initialize_optimizer(tmodel, tparams, tcfg)
     ttrainer = tpipe.initialize_trainer(tmodel, tparams, topt, tlr, tb2, tcfg)
     tbatch = _torch_batch(batch)

@@ -23,7 +23,7 @@ the run with a non-zero exit:
 6. kernel_bwd    the two splash backward kernels against ``plain_backward``
                  at the training shape (one packed row of 4096 tokens), five
                  cases and one planted fault the check must catch, with
-                 timings;
+                 timings beside SDPA's backward alone;
 7. kernel_adamw  the fused AdamW kernel against its plain version at 7B leaf
                  shapes, with timings;
 8. train_grads   every param grad of a 2-layer model at 7B width through the
@@ -37,7 +37,10 @@ the run with a non-zero exit:
                  training shapes (8192 routed rows, 4 experts, 4096 <-> 11008,
                  both directions) in four group layouts and at the scoring
                  shape (16,384 rows) in two, one planted fault (group ends
-                 shifted by a row) the check must catch, and timings;
+                 shifted by a row) the check must catch; gmm and gmm dgrad
+                 timed in both directions at 8192 balanced and skewed rows
+                 and 16,384 scoring rows, tgmm at 8192 balanced rows, each
+                 beside its bound and ``torch._grouped_mm``;
 11. moe_grads    every param grad of a 1-layer MoE4 model at full width
                  (``configs/7B_MoE4_sft.py`` routed dropless,
                  ``tools/profile_step.py::moe_config``) through the kernels,
@@ -142,7 +145,7 @@ ADAMW_TIMED = "embedding"
 # kernel_gmm: the MoE training shapes (one packed 4096-token row, top-2: 8192
 # routed rows; hidden 4096, expert width 11008, 4 experts) in four group
 # layouts, and the scoring shape (two packed rows: 16,384 routed rows) in two:
-# (rows, group sizes).  The timings take the balanced training case
+# (rows, group sizes)
 GMM_H, GMM_M, GMM_E = 4096, 11008, 4
 GMM_CASES = {"balanced": (8192, [2048] * 4), "skewed_empty": (8192, [6000, 0, 2000, 192]),
              "one_group": (8192, [0, 0, 8192, 0]), "rows_past_sum": (8000, [2000, 1900, 2100, 1800]),
@@ -155,6 +158,10 @@ GMM_CASES = {"balanced": (8192, [2048] * 4), "skewed_empty": (8192, [6000, 0, 20
 # (9.1e-6, one group of 8192 rows).  A group end one row off moves a whole
 # row to another expert: 1.6e-2 relative L2 and thousands of elements out
 GMM_REL_L2 = 2.6e-3
+# the layouts timed, gmm and gmm dgrad each in both directions of the expert
+# MLP: the training shape, balanced and skewed, and the 16,384-row scoring
+# shape of the 96 scoring launches
+GMM_TIMED = ("balanced", "skewed_empty", "scoring_balanced")
 TGMM_REL_L2 = 1e-4
 # moe_scoring: the loss of the kernel path vs the plain grouped matmul over
 # 32 random-weight layers.  The two round expert outputs at different points,
@@ -536,8 +543,12 @@ def phase_kernel_bwd(dev):
         o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         torch.autograd.grad(o, (qt, kt, vt), dot)
 
-    library_ms = cuda_time_ms(sdpa_fwd_bwd, warmup=2, reps=5)
-    del qt, kt, vt, mask, dot
+    library_fwd_bwd_ms = cuda_time_ms(sdpa_fwd_bwd, warmup=2, reps=5)
+    # the backward alone, like for like with the two kernels: one forward
+    # keeps its graph and each timed call runs only its backward
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    library_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), warmup=2, reps=5)
+    del o, qt, kt, vt, mask, dot
     fwd_flops = attention_flops(seg.cpu().numpy(), q.shape[2], q.shape[3])  # 2 products
     # The backward's work: 5 products (S, dP, dV, dK, dQ), 2.5x the forward's;
     # inputs q, k, v, dO, the segment ids, lse and delta (fp32, B×Hq×S) read
@@ -552,12 +563,14 @@ def phase_kernel_bwd(dev):
     b_all = bound(2.5 * fwd_flops, reads + nbytes(q, k, v))
     emit({"phase": "kernel_bwd", "case": "timing packed_mha", "dkdv_ms": dkdv_ms, "dq_ms": dq_ms,
           "backward_ms": bwd_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "library": "scaled_dot_product_attention forward + backward, bool mask (B, 1, S, S)",
+          "library": "scaled_dot_product_attention backward alone, bool mask (B, 1, S, S)",
+          "library_fwd_bwd_ms": library_fwd_bwd_ms,
           "bound_dkdv": b_dkdv, "bound_dq": b_dq, "bound_backward": b_all,
           "useful_tflop": 2.5 * fwd_flops / 1e12, "backward_tflops": 2.5 * fwd_flops / bwd_ms / 1e9})
     return {"dkdv": {"ms": dkdv_ms, "max_abs_err": worst["dkdv"], **b_dkdv},
             "dq": {"ms": dq_ms, "max_abs_err": worst["dq"], **b_dq},
-            "plain_ms": plain_ms, "library_ms": library_ms, "backward_ms": bwd_ms}
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_fwd_bwd_ms": library_fwd_bwd_ms,
+            "backward_ms": bwd_ms}
 
 
 def phase_kernel_adamw(dev):
@@ -732,6 +745,9 @@ def gmm_refused(r: dict, bf16: bool) -> bool:
     return bool(r.get("outside")) or not r["finite"] or not r["rel_l2"] <= (GMM_REL_L2 if bf16 else TGMM_REL_L2)
 
 
+GROUPED_MM = "torch._grouped_mm with offs"
+
+
 def library_grouped_mm(a, b, offs, out_dtype):
     """One ``torch._grouped_mm`` call with ``offs``, the yardstick, where the
     card's torch has it and takes these operands; else None."""
@@ -749,7 +765,8 @@ def phase_kernel_gmm(dev):
     """gmm, gmm with the rhs transposed, and tgmm against their plain
     versions at the MoE training and scoring shapes, in both directions of
     the expert MLP (w1: 4096 -> 11008, w2: 11008 -> 4096), in ``GMM_CASES``'s
-    group layouts; a planted fault; timings in the balanced case on w1."""
+    group layouts; a planted fault; timings of gmm and gmm dgrad in both
+    directions in ``GMM_TIMED``'s layouts, of tgmm in the balanced case on w1."""
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     H, M, E = GMM_H, GMM_M, GMM_E
     n_max = max(n for n, _ in GMM_CASES.values())
@@ -787,7 +804,8 @@ def phase_kernel_gmm(dev):
             raise AssertionError(f"{case}: gmm kernels {bad} disagree with their plain versions: {checks}")
 
     n, sizes = GMM_CASES["balanced"]
-    x, dy_m = x[:n], dy_m[:n]  # the planted fault and the timings: the training shape
+    x_all, dy_m_all = x, dy_m
+    x, dy_m = x[:n], dy_m[:n]  # the planted fault and the tgmm timing: the training shape
     gs = torch.tensor(sizes, device=dev)
     planted = {}
     for name, call, plain in (("gmm", gmm.GmmCall(x, w1, gs), lambda: gmm.plain_gmm(x, w1, gs)),
@@ -804,41 +822,54 @@ def phase_kernel_gmm(dev):
     if not all(r["refused"] for r in planted.values()):
         raise AssertionError(f"the gmm check let a group end one row off through: {planted}")
 
+    out = {"gmm": {"timed": []}, "gmm_dgrad": {"timed": []}}
+    for case in GMM_TIMED:
+        n, sizes = GMM_CASES[case]
+        gs = torch.tensor(sizes, device=dev)
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        experts = sum(1 for s in gmm._host_sizes(gs, n) if s)  # the weights a run must read
+        for name, weight, a, w, trans in (("gmm", "w1", x_all, w1, False), ("gmm", "w2", hm, w2, False),
+                                          ("gmm_dgrad", "w1", dy_m_all, w1, True),
+                                          ("gmm_dgrad", "w2", dy_h, w2, True)):
+            a = a[:n]
+            Kc, F = a.shape[1], (w.shape[1] if trans else w.shape[2])
+            flops = 2.0 * n * Kc * F
+            b = bound(flops, nbytes(a) + experts * Kc * F * 2 + n * F * 2)
+            ms = cuda_time_ms(gmm.GmmCall(a, w, gs, transpose_rhs=trans).launch)
+            plain_ms = cuda_time_ms(lambda: gmm.plain_gmm(a, w, gs, transpose_rhs=trans), warmup=1, reps=3)
+            library = library_grouped_mm(a, w.transpose(1, 2) if trans else w, offs, BF16)
+            library_ms = cuda_time_ms(library) if library is not None else None
+            r = {"layout": case, "weight": weight, "rows": n, "contraction": Kc, "columns": F, "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": library_ms, **b, "tflops": flops / ms / 1e9,
+                 "share_of_bf16_peak": flops / ms / 1e9 / device_peak_tflops()}
+            emit({"phase": "kernel_gmm", "case": f"timing {name}", "library": GROUPED_MM if library else None, **r})
+            out[name]["timed"].append(r)
+            if (case, weight) == ("balanced", "w1"):  # the kernels line's headline: the training shape, w1
+                out[name].update({k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    for name in out:
+        out[name].update(worst[name], library=GROUPED_MM if out[name]["library_ms"] is not None else None)
+
+    n, sizes = GMM_CASES["balanced"]
+    gs = torch.tensor(sizes, device=dev)
     offs = torch.cumsum(gs, 0, dtype=torch.int32)
-    n = x.shape[0]
-    ends = [0, *np.cumsum(GMM_CASES["balanced"][1]).tolist()]
+    ends = [0, *np.cumsum(sizes).tolist()]
     groups = list(zip(range(E), ends[:-1], ends[1:]))
-    timed = {  # name: (kernel, plain, one library call or None, a loop of torch.mm, bytes moved)
-        "gmm": (gmm.GmmCall(x, w1, gs).launch, lambda: gmm.plain_gmm(x, w1, gs),
-                library_grouped_mm(x, w1, offs, BF16),
-                lambda: [torch.mm(x[a:b], w1[e]) for e, a, b in groups], nbytes(x, w1) + n * M * 2),
-        "gmm_dgrad": (gmm.GmmCall(dy_m, w1, gs, transpose_rhs=True).launch,
-                      lambda: gmm.plain_gmm(dy_m, w1, gs, transpose_rhs=True),
-                      library_grouped_mm(dy_m, w1.transpose(1, 2), offs, BF16),
-                      lambda: [torch.mm(dy_m[a:b], w1[e].t()) for e, a, b in groups], nbytes(dy_m, w1) + n * H * 2),
-        "tgmm": (gmm.TgmmCall(x, dy_m, gs, E).launch, lambda: gmm.plain_tgmm(x, dy_m, gs, E),
-                 library_grouped_mm(x.t(), dy_m, offs, BF16),
-                 lambda: [torch.mm(x[a:b].t(), dy_m[a:b]) for e, a, b in groups], nbytes(x, dy_m) + E * H * M * 4),
-    }
-    out = {}
-    for name, (kernel, plain, library, loop, moved) in timed.items():
-        flops = 2.0 * n * H * M
-        ms = cuda_time_ms(kernel)
-        plain_ms = cuda_time_ms(plain, warmup=1, reps=3)
-        if library is not None:
-            library_ms = cuda_time_ms(library)
-            label = "torch._grouped_mm with offs" + (" (bf16 output: the library writes mat_a's dtype)"
-                                                      if name == "tgmm" else "")
-        else:  # no single library call takes these operands
-            library_ms = cuda_time_ms(loop)
-            label = "a loop of torch.mm over the groups, bf16 output (not one call)"
-        b = bound(flops, moved)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library": label, **b,
-                     **worst[name]}
-        emit({"phase": "kernel_gmm", "case": f"timing balanced {name}", "kernel_ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "library": label, **b, "useful_tflop": flops / 1e12,
-              "kernel_tflops": flops / ms / 1e9, "kernel_share_of_bf16_peak": flops / ms / 1e9 / device_peak_tflops()})
-    del x, hm, dy_m, dy_h, w1, w2, timed
+    flops = 2.0 * n * H * M
+    ms = cuda_time_ms(gmm.TgmmCall(x, dy_m, gs, E).launch)
+    plain_ms = cuda_time_ms(lambda: gmm.plain_tgmm(x, dy_m, gs, E), warmup=1, reps=3)
+    library = library_grouped_mm(x.t(), dy_m, offs, BF16)
+    if library is not None:
+        library_ms = cuda_time_ms(library)
+        label = "torch._grouped_mm with offs (bf16 output: the library writes mat_a's dtype)"
+    else:  # no single library call takes these operands
+        library_ms = cuda_time_ms(lambda: [torch.mm(x[a:b].t(), dy_m[a:b]) for e, a, b in groups])
+        label = "a loop of torch.mm over the groups, bf16 output (not one call)"
+    b = bound(flops, nbytes(x, dy_m) + E * H * M * 4)
+    out["tgmm"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library": label, **b, **worst["tgmm"]}
+    emit({"phase": "kernel_gmm", "case": "timing balanced tgmm", "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms": library_ms, "library": label, **b, "useful_tflop": flops / 1e12,
+          "kernel_tflops": flops / ms / 1e9, "kernel_share_of_bf16_peak": flops / ms / 1e9 / device_peak_tflops()})
+    del x, x_all, hm, dy_m, dy_m_all, dy_h, w1, w2
     torch.cuda.empty_cache()
     return out
 
@@ -1155,8 +1186,8 @@ def main() -> int:
     bwd_replaces = "internevo_tpu/ops/pallas/splash_attention.py:984 (_bwd_kernel_bsd), :787 (_bwd_kernel)"
     bwd_common = {"plain_ms": bwd["plain_ms"], "plain": "plain_backward (dq, dk, dv together)",
                   "library_ms": bwd["library_ms"],
-                  "library": "scaled_dot_product_attention forward + backward, bool mask (yardstick)",
-                  "backward_ms": bwd["backward_ms"]}
+                  "library": "scaled_dot_product_attention backward alone, bool mask (yardstick)",
+                  "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"], "backward_ms": bwd["backward_ms"]}
     emit({"kernels": [
         {"name": "splash_attention_fwd", "route": "cuda", "source": f"internevo_tpu_torch/csrc/{splash.SOURCE}",
          "replaces": "internevo_tpu/ops/pallas/splash_attention.py:558 (_fwd_kernel_bsd), :457 (_fwd_kernel)",

@@ -30,6 +30,7 @@ from .build import load
 
 SOURCE = "gmm.cu"
 OUT_DTYPES = (torch.bfloat16, torch.float32)
+GMM_TILE_M = 128  # x rows of a gmm work item (csrc/gmm.cu GMM_BM)
 
 # kernel launches; the plain versions never count
 launches_gmm = 0          # gmm forward (transpose_rhs False)
@@ -70,6 +71,24 @@ def plain_tgmm(x, dy, group_sizes, E: int):
             out[e] = x[start:start + size].float().T @ dy[start:start + size].float()
             start += size
     return out
+
+
+def gmm_work_items(ends, n: int) -> list[tuple[int, int, int, int]]:
+    """The gmm kernel's (group, m-tile, lo, hi) pairs, in its order, for the
+    group ends ``ends`` (the cumulative group sizes) over n rows: the Python
+    twin of ``csrc/gmm.cu::gmm_pair``.  The groups cut [0, n) in order at the
+    ends, clamped to [0, n) and never decreasing; the last group also takes
+    the rows past the sum.  A non-empty group lists every m-tile that its rows
+    [lo, hi) overlap.  The kernel runs each pair once for every n-tile, with
+    the group's weights, and stores only the rows [lo, hi)."""
+    items, end = [], 0
+    for g, c in enumerate(ends):
+        lo = end
+        hi = n if g == len(ends) - 1 else min(n, max(lo, int(c)))
+        end = hi
+        if lo < hi:
+            items += [(g, mt, lo, hi) for mt in range(lo // GMM_TILE_M, (hi - 1) // GMM_TILE_M + 1)]
+    return items
 
 
 # ------------------------------------------------------------------ kernels

@@ -130,3 +130,69 @@ def test_gmm_refuses_other_devices():
     x = torch.zeros(16, 8, device="meta")
     with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
         gmm.gmm(x, torch.zeros(2, 8, 8, device="meta"), torch.zeros(2, dtype=torch.int32, device="meta"))
+
+
+def _row_owners(sizes, n):
+    """The group of each of n rows under the plain rule: groups in order, the
+    last one also owning the rows past the sum."""
+    owners, start = np.empty(n, np.int64), 0
+    for g, size in enumerate(gmm._host_sizes(torch.tensor(sizes), n)):
+        owners[start:start + size] = g
+        start += size
+    return owners
+
+
+@pytest.mark.parametrize("n,sizes", [
+    (1000, [250, 250, 250, 250]),       # balanced, n not a tile multiple
+    (8192, [6000, 0, 2000, 192]),       # skewed with an empty group
+    (430, [0, 130, 300, 0]),            # empty first and last groups, several m-tiles each
+    (600, [0, 130, 300, 0]),            # rows past the sum go to the (otherwise empty) last group
+    (1, [0, 1, 0, 0]),                  # one row
+    (512, [128, 128, 0, 256]),          # boundaries on tile edges
+    (777, [5, 3, 1, 700, 0, 60, 8, 0]), # several groups inside one m-tile
+    (300, [37, 120, 100, 0]),           # rows past the sum, last group otherwise empty
+], ids=["balanced", "skewed_empty", "empty_ends", "rows_past_sum", "one_row", "tile_edges", "many_in_one_tile",
+        "past_sum_small"])
+def test_gmm_work_items_store_every_row_once_in_its_group(n, sizes):
+    """Every row is stored by exactly one (group, m-tile) item, and that item's
+    group is the row's own; a group boundary inside an m-tile costs one extra
+    item at most.  Running the items as the kernel does (each tile's product
+    with its group's weights, only rows [lo, hi) stored) gives plain_gmm."""
+    E, tile = len(sizes), gmm.GMM_TILE_M
+    items = gmm.gmm_work_items(np.cumsum(sizes).tolist(), n)
+    stored = np.zeros(n, np.int64)
+    owner = np.full(n, -1)
+    for g, mt, lo, hi in items:
+        rows = np.arange(max(lo, mt * tile), min(hi, mt * tile + tile))
+        assert len(rows) > 0 and hi <= n
+        stored[rows] += 1
+        owner[rows] = g
+    assert (stored == 1).all()
+    np.testing.assert_array_equal(owner, _row_owners(sizes, n))
+    assert len(items) <= -(-n // tile) + E - 1
+
+    x, w, _ = _inputs(n, 16, 24, E, seed=6)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    out = torch.full((n, 24), float("nan"))
+    for g, mt, lo, hi in items:
+        tile_out = xt[mt * tile:mt * tile + tile] @ wt[g]
+        a, b = max(lo, mt * tile), min(hi, mt * tile + tile)
+        out[a:b] = tile_out[a - mt * tile:b - mt * tile]
+    torch.testing.assert_close(out, gmm.plain_gmm(xt, wt, torch.tensor(sizes)), rtol=0, atol=1e-6)
+
+
+def test_gmm_work_items_random_layouts():
+    """The same ownership over random group sizes, with sums below n."""
+    rng = np.random.RandomState(7)
+    for _ in range(200):
+        E = int(rng.randint(1, 9))
+        n = int(rng.randint(1, 2000))
+        sizes = rng.multinomial(int(rng.randint(0, n + 1)), rng.dirichlet(np.full(E, 0.3))).tolist()
+        stored = np.zeros(n, np.int64)
+        owner = np.full(n, -1)
+        for g, mt, lo, hi in gmm.gmm_work_items(np.cumsum(sizes).tolist(), n):
+            rows = np.arange(max(lo, mt * gmm.GMM_TILE_M), min(hi, (mt + 1) * gmm.GMM_TILE_M))
+            stored[rows] += 1
+            owner[rows] = g
+        assert (stored == 1).all(), (n, sizes)
+        np.testing.assert_array_equal(owner, _row_owners(sizes, n))

@@ -43,12 +43,25 @@ def _close_f32(got, want):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
+# (n, K, N, group sizes); the forward contracts K into N columns, the dgrad
+# (transpose_rhs) N into K columns
 CASES = {
     "balanced": (1000, 256, 384, [250, 250, 250, 250]),
     "empty_groups": (1000, 256, 384, [100, 0, 600, 300]),
     "one_group": (777, 128, 264, [0, 0, 777, 0]),
     "rows_past_the_sum": (300, 136, 128, [37, 120, 100, 0]),
     "ragged_tiles": (1, 40, 24, [0, 1, 0, 0]),
+    # the Hopper mainloop's edges: a contraction that is not a multiple of its
+    # 64-deep slice (zero-filled inside the expert), output widths that are
+    # not a multiple of its 256-column tile, n not a multiple of its 128-row
+    # tile, groups straddling several m-tiles with the first and last empty,
+    # and rows past the sum
+    "contraction_tail_200": (700, 200, 256, [300, 0, 250, 150]),
+    "width_264": (640, 128, 264, [200, 200, 40, 200]),
+    "width_24": (333, 64, 24, [100, 100, 100, 33]),
+    "rows_not_tile_multiple": (333, 256, 512, [111, 111, 111, 0]),
+    "straddling_empty_ends": (430, 192, 320, [0, 130, 300, 0]),
+    "rows_past_the_sum_many_tiles": (900, 128, 256, [0, 300, 200, 0]),
 }
 
 
@@ -61,15 +74,17 @@ def test_gmm_kernels_match_plain(dev, case):
     out = gmm.gmm(x, w, group_sizes)
     dx = gmm.gmm(dy, w, group_sizes, transpose_rhs=True)
     out32 = gmm.gmm(x, w, group_sizes, out_dtype=torch.float32)
+    dx32 = gmm.gmm(dy, w, group_sizes, transpose_rhs=True, out_dtype=torch.float32)
     dw = gmm.tgmm(x, dy, group_sizes, len(gs))
     torch.cuda.synchronize()
-    assert (gmm.launches_gmm, gmm.launches_gmm_dgrad, gmm.launches_tgmm) == (before[0] + 2, before[1] + 1,
+    assert (gmm.launches_gmm, gmm.launches_gmm_dgrad, gmm.launches_tgmm) == (before[0] + 2, before[1] + 2,
                                                                               before[2] + 1)
     assert out.dtype == dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
     torch.testing.assert_close(out.float(), gmm.plain_gmm(x, w, group_sizes).float(), rtol=1.6e-2, atol=1.6e-2)
     torch.testing.assert_close(dx.float(), gmm.plain_gmm(dy, w, group_sizes, transpose_rhs=True).float(),
                                rtol=1.6e-2, atol=1.6e-2)
     _close_f32(out32, gmm.plain_gmm(x, w, group_sizes, out_dtype=torch.float32))
+    _close_f32(dx32, gmm.plain_gmm(dy, w, group_sizes, transpose_rhs=True, out_dtype=torch.float32))
     _close_f32(dw, gmm.plain_tgmm(x, dy, group_sizes, len(gs)))
     for e, size in enumerate(gs[:-1]):
         if size == 0:
@@ -96,6 +111,8 @@ def test_gmm_is_deterministic(dev):
     x, w, dy = _inputs(dev, 1024, 256, 512, 4, seed=2)
     group_sizes = torch.tensor([500, 24, 0, 500], device=dev)
     assert torch.equal(gmm.gmm(x, w, group_sizes), gmm.gmm(x, w, group_sizes))
+    assert torch.equal(gmm.gmm(dy, w, group_sizes, transpose_rhs=True),
+                       gmm.gmm(dy, w, group_sizes, transpose_rhs=True))
     assert torch.equal(gmm.tgmm(x, dy, group_sizes, 4), gmm.tgmm(x, dy, group_sizes, 4))
 
 

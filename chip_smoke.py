@@ -10,7 +10,8 @@ the run with a non-zero exit:
                  matmuls;
 2. build         the CUDA kernels compiled from ``internevo_tpu_torch/csrc``
                  (one nvcc per source, in parallel) and the Triton AdamW
-                 kernel JIT-compiled, with registers and spills;
+                 kernel JIT-compiled, with registers and spills; a CUDA
+                 source whose ``ptxas`` log shows a spill fails the run;
 3. kernel        the splash forward kernel against its plain version at the
                  InternLM-7B scoring shapes, bf16 on the card, with timings;
 4. scoring       InternLM-7B (``configs/7B_sft.py``, full width and depth,
@@ -36,11 +37,14 @@ the run with a non-zero exit:
                  transposed, tgmm) against their plain versions at the MoE
                  training shapes (8192 routed rows, 4 experts, 4096 <-> 11008,
                  both directions) in four group layouts and at the scoring
-                 shape (16,384 rows) in two, one planted fault (group ends
-                 shifted by a row) the check must catch; gmm and gmm dgrad
-                 timed in both directions at 8192 balanced and skewed rows
-                 and 16,384 scoring rows, tgmm at 8192 balanced rows, each
-                 beside its bound and ``torch._grouped_mm``;
+                 shape (16,384 rows) in two, tgmm's bf16 dW bit for bit
+                 its fp32 dW rounded, one planted fault (group ends shifted
+                 by a row) the check must catch; gmm and gmm dgrad timed in
+                 both directions at 8192 balanced and skewed rows and 16,384
+                 scoring rows, tgmm (bf16 dW, as training writes it) in both
+                 directions at 8192 balanced, skewed and one-group rows,
+                 and with fp32 dW at balanced rows, each beside its bound
+                 and ``torch._grouped_mm``;
 11. moe_grads    every param grad of a 1-layer MoE4 model at full width
                  (``configs/7B_MoE4_sft.py`` routed dropless,
                  ``tools/profile_step.py::moe_config``) through the kernels,
@@ -69,6 +73,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -162,6 +167,9 @@ GMM_REL_L2 = 2.6e-3
 # MLP: the training shape, balanced and skewed, and the 16,384-row scoring
 # shape of the 96 scoring launches
 GMM_TIMED = ("balanced", "skewed_empty", "scoring_balanced")
+# tgmm, both directions at the training shape: balanced, skewed with an empty
+# group, and one group owning every row
+TGMM_TIMED = ("balanced", "skewed_empty", "one_group")
 TGMM_REL_L2 = 1e-4
 # moe_scoring: the loss of the kernel path vs the plain grouped matmul over
 # 32 random-weight layers.  The two round expert outputs at different points,
@@ -259,10 +267,16 @@ def phase_build(dev):
     for src in sources:
         build.load(src)
     cuda_s = time.perf_counter() - t0
+    spilled = []
     for src, log in zip(sources, logs):
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         emit({"phase": "build", "source": f"internevo_tpu_torch/csrc/{src}", "seconds": cuda_s,
               "ptxas": ptxas})
+        # a spill serialises the wgmma mainloop (ptxas C7514/C7518): refuse it
+        if any(int(b) for ln in ptxas for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)):
+            spilled.append(src)
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
     n = 2 * fused_adamw.BLOCK
     f32 = [torch.zeros(n, device=dev) for _ in range(4)]
     sc = fused_adamw.adamw_scalars(0, 0.9, 0.95, 1, 1, 1e-8, 0, 1, 0, dev)
@@ -765,8 +779,10 @@ def phase_kernel_gmm(dev):
     """gmm, gmm with the rhs transposed, and tgmm against their plain
     versions at the MoE training and scoring shapes, in both directions of
     the expert MLP (w1: 4096 -> 11008, w2: 11008 -> 4096), in ``GMM_CASES``'s
-    group layouts; a planted fault; timings of gmm and gmm dgrad in both
-    directions in ``GMM_TIMED``'s layouts, of tgmm in the balanced case on w1."""
+    group layouts, tgmm's bf16 dW against its own fp32 dW rounded; a planted
+    fault; timings of gmm and gmm dgrad in both directions in ``GMM_TIMED``'s
+    layouts, of tgmm (bf16 dW) in both directions in ``TGMM_TIMED``'s, and
+    with fp32 dW at the balanced layout."""
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     H, M, E = GMM_H, GMM_M, GMM_E
     n_max = max(n for n, _ in GMM_CASES.values())
@@ -786,6 +802,8 @@ def phase_kernel_gmm(dev):
             "tgmm_w1": ("tgmm", lambda: gmm.tgmm(x[:n], dy_m[:n], gs, E), lambda: gmm.plain_tgmm(x[:n], dy_m[:n], gs, E)),
             "tgmm_w2": ("tgmm", lambda: gmm.tgmm(hm[:n], dy_h[:n], gs, E), lambda: gmm.plain_tgmm(hm[:n], dy_h[:n], gs, E)),
         }
+        bf16_dw = {"tgmm_w1": lambda: gmm.tgmm(x[:n], dy_m[:n], gs, E, out_dtype=BF16),
+                   "tgmm_w2": lambda: gmm.tgmm(hm[:n], dy_h[:n], gs, E, out_dtype=BF16)}
         checks, bad = {}, []
         for name, (cls, kernel, plain) in calls.items():
             got = kernel()
@@ -794,7 +812,9 @@ def phase_kernel_gmm(dev):
             r = checks[name] = gmm_checks(got, plain(), bf16)
             if not bf16:  # an empty group's dW is exactly 0 (the last group also owns the rows past the sum)
                 r["empty_groups_zero"] = all(bool((got[e] == 0).all()) for e in range(E - 1) if sizes[e] == 0)
-            if gmm_refused(r, bf16) or r.get("empty_groups_zero") is False:
+                # the bf16 dW of the training path is the fp32 dW rounded once, bit for bit
+                r["bf16_equals_fp32_cast"] = bool(torch.equal(bf16_dw[name](), got.to(BF16)))
+            if gmm_refused(r, bf16) or False in (r.get("empty_groups_zero"), r.get("bf16_equals_fp32_cast")):
                 bad.append(name)
             for k in ("max_abs_err", "rel_l2"):
                 worst[cls][k] = max(worst[cls][k], r[k])
@@ -805,7 +825,7 @@ def phase_kernel_gmm(dev):
 
     n, sizes = GMM_CASES["balanced"]
     x_all, dy_m_all = x, dy_m
-    x, dy_m = x[:n], dy_m[:n]  # the planted fault and the tgmm timing: the training shape
+    x, dy_m = x[:n], dy_m[:n]  # the planted fault: the training shape
     gs = torch.tensor(sizes, device=dev)
     planted = {}
     for name, call, plain in (("gmm", gmm.GmmCall(x, w1, gs), lambda: gmm.plain_gmm(x, w1, gs)),
@@ -822,7 +842,21 @@ def phase_kernel_gmm(dev):
     if not all(r["refused"] for r in planted.values()):
         raise AssertionError(f"the gmm check let a group end one row off through: {planted}")
 
-    out = {"gmm": {"timed": []}, "gmm_dgrad": {"timed": []}}
+    out = {name: {"timed": []} for name in ("gmm", "gmm_dgrad", "tgmm")}
+
+    def timed(name, case, weight, flops, moved, kernel, plain, library, **shape):
+        """One kernel timing beside its bound, plain version and library call;
+        the balanced w1 timing is the kernels line's headline."""
+        ms = cuda_time_ms(kernel)
+        r = {"layout": case, "weight": weight, **shape, "ms": ms,
+             "plain_ms": cuda_time_ms(plain, warmup=1, reps=3),
+             "library_ms": cuda_time_ms(library) if library is not None else None, **bound(flops, moved),
+             "tflops": flops / ms / 1e9, "share_of_bf16_peak": flops / ms / 1e9 / device_peak_tflops()}
+        emit({"phase": "kernel_gmm", "case": f"timing {name}", "library": GROUPED_MM if library else None, **r})
+        out[name]["timed"].append(r)
+        if (case, weight) == ("balanced", "w1") and shape.get("out_dtype", "bf16") == "bf16":
+            out[name].update({k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+
     for case in GMM_TIMED:
         n, sizes = GMM_CASES[case]
         gs = torch.tensor(sizes, device=dev)
@@ -833,42 +867,27 @@ def phase_kernel_gmm(dev):
                                           ("gmm_dgrad", "w2", dy_h, w2, True)):
             a = a[:n]
             Kc, F = a.shape[1], (w.shape[1] if trans else w.shape[2])
-            flops = 2.0 * n * Kc * F
-            b = bound(flops, nbytes(a) + experts * Kc * F * 2 + n * F * 2)
-            ms = cuda_time_ms(gmm.GmmCall(a, w, gs, transpose_rhs=trans).launch)
-            plain_ms = cuda_time_ms(lambda: gmm.plain_gmm(a, w, gs, transpose_rhs=trans), warmup=1, reps=3)
-            library = library_grouped_mm(a, w.transpose(1, 2) if trans else w, offs, BF16)
-            library_ms = cuda_time_ms(library) if library is not None else None
-            r = {"layout": case, "weight": weight, "rows": n, "contraction": Kc, "columns": F, "ms": ms,
-                 "plain_ms": plain_ms, "library_ms": library_ms, **b, "tflops": flops / ms / 1e9,
-                 "share_of_bf16_peak": flops / ms / 1e9 / device_peak_tflops()}
-            emit({"phase": "kernel_gmm", "case": f"timing {name}", "library": GROUPED_MM if library else None, **r})
-            out[name]["timed"].append(r)
-            if (case, weight) == ("balanced", "w1"):  # the kernels line's headline: the training shape, w1
-                out[name].update({k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+            timed(name, case, weight, 2.0 * n * Kc * F, nbytes(a) + experts * Kc * F * 2 + n * F * 2,
+                  gmm.GmmCall(a, w, gs, transpose_rhs=trans).launch,
+                  lambda: gmm.plain_gmm(a, w, gs, transpose_rhs=trans),
+                  library_grouped_mm(a, w.transpose(1, 2) if trans else w, offs, BF16),
+                  rows=n, contraction=Kc, columns=F)
+    # tgmm with the training path's bf16 dW; at the balanced layout also with
+    # the fp32 dW of the default API, the output PR 5's kernel wrote
+    for case in TGMM_TIMED:
+        n, sizes = GMM_CASES[case]
+        gs = torch.tensor(sizes, device=dev)
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        for weight, a, b in (("w1", x_all, dy_m_all), ("w2", hm, dy_h)):
+            a, b = a[:n], b[:n]
+            K, N = a.shape[1], b.shape[1]
+            for dt in (BF16, torch.float32) if case == "balanced" else (BF16,):
+                timed("tgmm", case, weight, 2.0 * n * K * N, nbytes(a, b) + E * K * N * dt.itemsize,
+                      gmm.TgmmCall(a, b, gs, E, dt).launch, lambda: gmm.plain_tgmm(a, b, gs, E, dt),
+                      library_grouped_mm(a.t(), b, offs, dt), rows=n, k=K, n=N,
+                      out_dtype="bf16" if dt == BF16 else "fp32")
     for name in out:
         out[name].update(worst[name], library=GROUPED_MM if out[name]["library_ms"] is not None else None)
-
-    n, sizes = GMM_CASES["balanced"]
-    gs = torch.tensor(sizes, device=dev)
-    offs = torch.cumsum(gs, 0, dtype=torch.int32)
-    ends = [0, *np.cumsum(sizes).tolist()]
-    groups = list(zip(range(E), ends[:-1], ends[1:]))
-    flops = 2.0 * n * H * M
-    ms = cuda_time_ms(gmm.TgmmCall(x, dy_m, gs, E).launch)
-    plain_ms = cuda_time_ms(lambda: gmm.plain_tgmm(x, dy_m, gs, E), warmup=1, reps=3)
-    library = library_grouped_mm(x.t(), dy_m, offs, BF16)
-    if library is not None:
-        library_ms = cuda_time_ms(library)
-        label = "torch._grouped_mm with offs (bf16 output: the library writes mat_a's dtype)"
-    else:  # no single library call takes these operands
-        library_ms = cuda_time_ms(lambda: [torch.mm(x[a:b].t(), dy_m[a:b]) for e, a, b in groups])
-        label = "a loop of torch.mm over the groups, bf16 output (not one call)"
-    b = bound(flops, nbytes(x, dy_m) + E * H * M * 4)
-    out["tgmm"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library": label, **b, **worst["tgmm"]}
-    emit({"phase": "kernel_gmm", "case": "timing balanced tgmm", "kernel_ms": ms, "plain_ms": plain_ms,
-          "library_ms": library_ms, "library": label, **b, "useful_tflop": flops / 1e12,
-          "kernel_tflops": flops / ms / 1e9, "kernel_share_of_bf16_peak": flops / ms / 1e9 / device_peak_tflops()})
     del x, x_all, hm, dy_m, dy_m_all, dy_h, w1, w2
     torch.cuda.empty_cache()
     return out

@@ -113,6 +113,46 @@ class ModelConfig:
         return self.num_attention_heads // self.num_kv_attention_heads
 
 
+# Keys of the JAX ModelConfig that the port does not model.  A key whose value
+# changes what the model computes on one device is refused unless it holds its
+# JAX default (key: (default, what it asks for)); the others change nothing
+# here and are accepted (key: why).  Keys that neither ModelConfig holds (among
+# them those the JAX builders pop, ``internevo_tpu/models/internlm.py:22-27``)
+# are dropped, as the JAX builders drop them.
+REFUSED_KEYS = {
+    "is_reward": (False, "the reward model's 1-wide scalar head (internevo_tpu/models/base.py:108,220)"),
+    "remat_save_mlp": (0.0, "saved SwiGLU gates under activation recompute, which the port refuses"),
+    "remat_save_qkv": (0.0, "saved q/k/v under activation recompute, which the port refuses"),
+    "activation_offload": (False, "host offload of recomputed layers' attention, which the port refuses"),
+}
+ACCEPTED_KEYS = {
+    "parallel_output": "lays the head's output over tensor-parallel ranks",
+    "scan_unroll": "unrolls the JAX layer scan",
+    "ring_schedule": "orders ring attention's sequence shards",
+    "use_swiglu": "read by no JAX model: the MLP is always SwiGLU",
+    "moe_gate_noise": "read by nothing in the JAX package",
+    "moe_layer_freq": "read by nothing in the JAX package",
+    "moe_capacity_factor": "GShard capacity routing only, which the port refuses",
+    "moe_eval_capacity_factor": "GShard capacity routing only, which the port refuses",
+    "moe_min_capacity": "GShard capacity routing only, which the port refuses",
+    "moe_use_rts": "GShard capacity routing only, which the port refuses",
+    "moe_noisy_gate_policy": "GShard capacity routing only, which the port refuses",
+}
+
+
+def config_from_kwargs(kwargs: dict, **fixed) -> ModelConfig:
+    """A ``ModelConfig`` from a builder's kwargs and the family's ``fixed``
+    fields (which the kwargs cannot override, as in the JAX builders).
+    Raises ``NotImplementedError`` for a key of ``REFUSED_KEYS`` set to
+    anything but its JAX default."""
+    for key, (default, what) in REFUSED_KEYS.items():
+        if key in kwargs and kwargs[key] != default:
+            raise NotImplementedError(
+                f"model.{key}={kwargs[key]!r} asks for {what}; the port does not model it yet")
+    return ModelConfig(**fixed, **{k: v for k, v in kwargs.items()
+                                   if k in ModelConfig.__dataclass_fields__ and k not in fixed})
+
+
 # --------------------------------------------------------------------------- init
 
 

@@ -7,20 +7,14 @@ InternLM1: MHA, wqkv/out_proj bias, no mlp bias, scaled init on out_proj/w2.
 from __future__ import annotations
 
 from ..utils.registry import MODEL_INITIALIZER
-from .base import ModelConfig, ModelDef, make_model_def
+from .base import ModelDef, config_from_kwargs, make_model_def
 
 MODEL_TYPE = "INTERNLM"
 
 
 @MODEL_INITIALIZER.register_module(MODEL_TYPE)
 def build_model_with_cfg(**kwargs) -> ModelDef:
-    """Config kwargs the port does not model (parallel layout, remat, flash
-    switches, training-only knobs) are dropped, as the JAX ``build_model_with_cfg`` drops them."""
-    cfg = ModelConfig(
-        qkv_bias=True,
-        o_bias=True,
-        mlp_bias=False,
-        **{k: v for k, v in kwargs.items() if k in ModelConfig.__dataclass_fields__
-           and k not in ("qkv_bias", "o_bias", "mlp_bias")},
-    )
-    return make_model_def(cfg)
+    """Keys the port does not model are dropped or refused by
+    ``config_from_kwargs``, as the JAX ``build_model_with_cfg`` drops keys it
+    does not know."""
+    return make_model_def(config_from_kwargs(kwargs, qkv_bias=True, o_bias=True, mlp_bias=False))

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from ..utils.registry import MODEL_INITIALIZER
 from .base import (ModelConfig, ModelDef, _dense, _normal, _refuse_untrained_settings, block_forward,
-                   embed_tokens, head_logits, init_params)
+                   config_from_kwargs, embed_tokens, head_logits, init_params)
 from .moe.dropless import dropless_moe_apply
 
 MODEL_TYPE = "INTERNLM_MoE"
@@ -118,15 +118,14 @@ def moe_model_forward(cfg: ModelConfig, params: dict, input_ids, positions, segm
 def build_model_with_cfg(**kwargs) -> ModelDef:
     """The JAX ``build_model_with_cfg`` (``modeling_moe.py:217-238``):
     ``moe_gate_k`` is the routing top-k and ``moe_use_residual`` turns on the
-    residual branch; keys the port does not model are dropped."""
+    residual branch; keys the port does not model are dropped or refused by
+    ``config_from_kwargs``."""
     gate_k = kwargs.pop("moe_gate_k", None)
     if gate_k is not None:
         kwargs.setdefault("top_k", gate_k)
     if kwargs.pop("moe_use_residual", False):
         kwargs.setdefault("num_shared_experts", 1)
-    fields = {k: v for k, v in kwargs.items() if k in ModelConfig.__dataclass_fields__
-              and k not in ("qkv_bias", "o_bias", "mlp_bias")}
-    cfg = ModelConfig(qkv_bias=True, o_bias=True, mlp_bias=False, **fields)
+    cfg = config_from_kwargs(kwargs, qkv_bias=True, o_bias=True, mlp_bias=False)
     if cfg.num_experts <= 1:
         raise ValueError("INTERNLM_MoE requires model.num_experts > 1")
     if not is_dropless(cfg):

@@ -5,7 +5,7 @@ Counterpart of ``internevo_tpu/ops/pallas/gmm.py``.  Rows sorted by expert
 meet their expert's weights::
 
     gmm:   out[i] = x[i] @ w[g(i)]          (w: (E, K, N); transpose_rhs: @ w[g(i)]ᵀ)
-    tgmm:  dw[e]  = Σ_{i ∈ e} x[i]ᵀ dy[i]    (fp32; exactly 0 for an empty group)
+    tgmm:  dw[e]  = Σ_{i ∈ e} x[i]ᵀ dy[i]    (exactly 0 for an empty group)
 
 ``group_sizes`` (E,) gives the rows of each group in order; rows past
 ``sum(group_sizes)`` belong to the last group, as the TPU kernel's padded
@@ -30,7 +30,10 @@ from .build import load
 
 SOURCE = "gmm.cu"
 OUT_DTYPES = (torch.bfloat16, torch.float32)
-GMM_TILE_M = 128  # x rows of a gmm work item (csrc/gmm.cu GMM_BM)
+GMM_TILE_M = 128  # output rows of a work item (csrc/gmm.cu GMM_BM): x rows in gmm, dW rows in tgmm
+GMM_TILE_N = 256  # output columns of a work item (GMM_BN)
+GMM_SLICE = 64    # rows of one tgmm contraction slice (GMM_BK)
+BAND = 8          # row tiles of a band of the item order (BAND)
 
 # kernel launches; the plain versions never count
 launches_gmm = 0          # gmm forward (transpose_rhs False)
@@ -62,33 +65,67 @@ def plain_gmm(x, w, group_sizes, *, transpose_rhs: bool = False, out_dtype=None)
     return out.to(out_dtype or x.dtype)
 
 
-def plain_tgmm(x, dy, group_sizes, E: int):
-    """Plain torch ``tgmm``: (E, K, N) fp32, zero for an empty group."""
+def plain_tgmm(x, dy, group_sizes, E: int, out_dtype=torch.float32):
+    """Plain torch ``tgmm``: (E, K, N), zero for an empty group; an fp32 sum
+    per group, cast once to ``out_dtype``."""
     out = torch.zeros(E, x.shape[1], dy.shape[1], dtype=torch.float32, device=x.device)
     start = 0
     for e, size in enumerate(_host_sizes(group_sizes, x.shape[0])):
         if size:
             out[e] = x[start:start + size].float().T @ dy[start:start + size].float()
             start += size
-    return out
+    return out.to(out_dtype)
+
+
+def _group_spans(ends, n: int) -> list[tuple[int, int, int]]:
+    """(group, lo, hi) for each group: the groups cut [0, n) in order at the
+    ends, clamped to [0, n) and never decreasing; the last group also takes
+    the rows past the sum (``csrc/gmm.cu::gmm_pair``, ``group_rows``)."""
+    spans, end = [], 0
+    for g, c in enumerate(ends):
+        lo = end
+        end = n if g == len(ends) - 1 else min(n, max(lo, int(c)))
+        spans.append((g, lo, end))
+    return spans
 
 
 def gmm_work_items(ends, n: int) -> list[tuple[int, int, int, int]]:
     """The gmm kernel's (group, m-tile, lo, hi) pairs, in its order, for the
     group ends ``ends`` (the cumulative group sizes) over n rows: the Python
-    twin of ``csrc/gmm.cu::gmm_pair``.  The groups cut [0, n) in order at the
-    ends, clamped to [0, n) and never decreasing; the last group also takes
-    the rows past the sum.  A non-empty group lists every m-tile that its rows
-    [lo, hi) overlap.  The kernel runs each pair once for every n-tile, with
-    the group's weights, and stores only the rows [lo, hi)."""
-    items, end = [], 0
-    for g, c in enumerate(ends):
-        lo = end
-        hi = n if g == len(ends) - 1 else min(n, max(lo, int(c)))
-        end = hi
-        if lo < hi:
-            items += [(g, mt, lo, hi) for mt in range(lo // GMM_TILE_M, (hi - 1) // GMM_TILE_M + 1)]
-    return items
+    twin of ``csrc/gmm.cu::gmm_pair``.  A non-empty group [lo, hi) lists
+    every m-tile that its rows overlap.  The kernel runs each pair once for
+    every n-tile, with the group's weights, and stores only the rows [lo, hi)."""
+    return [(g, mt, lo, hi) for g, lo, hi in _group_spans(ends, n) if lo < hi
+            for mt in range(lo // GMM_TILE_M, (hi - 1) // GMM_TILE_M + 1)]
+
+
+def _band_order(t: int, tiles_m: int, tiles_n: int) -> tuple[int, int]:
+    """Tile (tm, tn) of linear id t in bands of ``BAND`` row tiles swept
+    column by column (``csrc/gmm.cu::band_order``)."""
+    width = BAND * tiles_n
+    first = t // width * BAND
+    rows = min(tiles_m - first, BAND)
+    return first + t % width % rows, t % width // rows
+
+
+def tgmm_work_items(ends, n: int, K: int, N: int) -> list[tuple[int, int, int, int, int]]:
+    """The tgmm kernel's (expert, K-tile, N-tile, lo, hi) items, in its walk
+    order, for the group ends ``ends`` over n rows: the Python twin of
+    ``csrc/gmm.cu::work_item<TGMM>``.  Every expert lists each of its
+    (K-tile, N-tile) tiles once, in bands of K-tiles swept across the
+    N-tiles; the contraction runs over the group's rows [lo, hi) in
+    ``GMM_SLICE``-row slices from lo (``tgmm_slices``), and an empty
+    group's items run none and store zeros.  Persistent block b takes items
+    b, b + blocks, ..."""
+    tiles_k, tiles_n = -(-K // GMM_TILE_M), -(-N // GMM_TILE_N)
+    return [(g, *_band_order(t, tiles_k, tiles_n), lo, hi) for g, lo, hi in _group_spans(ends, n)
+            for t in range(tiles_k * tiles_n)]
+
+
+def tgmm_slices(lo: int, hi: int) -> list[tuple[int, int]]:
+    """The contraction slices of a tgmm item over rows [lo, hi): (first row,
+    rows the group owns); the kernel zeroes x's rows past that count."""
+    return [(r, min(GMM_SLICE, hi - r)) for r in range(lo, hi, GMM_SLICE)]
 
 
 # ------------------------------------------------------------------ kernels
@@ -169,24 +206,31 @@ class GmmCall:
 
 
 class TgmmCall:
-    """The prepared operands of one tgmm; ``launch`` launches the kernel."""
+    """The prepared operands of one tgmm; ``launch`` launches the kernel.
+    With no rows, ``out`` is already the zeros and nothing is launched."""
 
-    def __init__(self, x, dy, group_sizes, E: int):
+    def __init__(self, x, dy, group_sizes, E: int, out_dtype=torch.float32):
         _check_operand("x", x, 2, x.device)
         _check_operand("dy", dy, 2, x.device)
         if dy.shape[0] != x.shape[0]:
             raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} differ in rows")
+        if out_dtype not in OUT_DTYPES:
+            raise TypeError(f"the CUDA tgmm kernel writes bf16 or fp32, not {out_dtype}")
         load(SOURCE)
         self.ends = _group_ends(group_sizes, E, x.device)
-        self.out = torch.empty(E, x.shape[1], dy.shape[1], dtype=torch.float32, device=x.device)
+        n = x.shape[0]
+        self.out = (torch.empty if n else torch.zeros)(E, x.shape[1], dy.shape[1], dtype=out_dtype,
+                                                       device=x.device)
         self.device = x.device
         self.args = [x.data_ptr(), dy.data_ptr(), self.ends.data_ptr(), self.out.data_ptr(),
-                     x.shape[0], x.shape[1], dy.shape[1], E]
+                     n, x.shape[1], dy.shape[1], E, int(out_dtype == torch.float32)]
         self.inputs = (x, dy)
 
     def launch(self) -> None:
         global launches_tgmm
-        _run(_fn("tgmm_bf16", 4, 4), self.device, self.args, "tgmm")
+        if self.inputs[0].shape[0] == 0:
+            return
+        _run(_fn("tgmm_bf16", 4, 5), self.device, self.args, "tgmm")
         launches_tgmm += 1
 
 
@@ -211,18 +255,20 @@ def gmm(x, w, group_sizes, *, transpose_rhs: bool = False, out_dtype=None):
     return call.out
 
 
-def tgmm(x, dy, group_sizes, E: int):
-    """x: (n, K); dy: (n, N); group_sizes: (E,) int.  Returns (E, K, N) fp32."""
+def tgmm(x, dy, group_sizes, E: int, out_dtype=torch.float32):
+    """x: (n, K); dy: (n, N); group_sizes: (E,) int.  Returns (E, K, N) in
+    ``out_dtype``: the fp32 sums, rounded once."""
     if _use_plain(x):
-        return plain_tgmm(x, dy, group_sizes, E)
-    call = TgmmCall(x, dy.contiguous(), group_sizes, E)
+        return plain_tgmm(x, dy, group_sizes, E, out_dtype)
+    call = TgmmCall(x, dy.contiguous(), group_sizes, E, out_dtype)
     call.launch()
     return call.out
 
 
 class GroupedMatmul(torch.autograd.Function):
     """out = gmm(x, w); the JAX ``grouped_matmul`` custom_vjp: dx by gmm with
-    the rhs transposed, dW by tgmm in fp32 cast to w's dtype (``gmm.py:342-347``)."""
+    the rhs transposed, dW by tgmm, its fp32 sums written in w's dtype (JAX
+    casts the fp32 result, ``gmm.py:342-347``: the same single rounding)."""
 
     @staticmethod
     def forward(ctx, x, w, group_sizes):
@@ -237,7 +283,7 @@ class GroupedMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = gmm(dy, w, group_sizes, transpose_rhs=True, out_dtype=x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = tgmm(x, dy, group_sizes, w.shape[0]).to(w.dtype)
+            dw = tgmm(x, dy, group_sizes, w.shape[0], out_dtype=w.dtype)
         return dx, dw, None
 
 

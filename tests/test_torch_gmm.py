@@ -58,22 +58,28 @@ def test_plain_gmm_matches_jax(gs):
     assert gmm.launches_gmm == 0
 
 
-def test_grouped_matmul_grads_match_jax():
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16], ids=["fp32", "bf16"])
+def test_grouped_matmul_grads_match_jax(dtype):
     """The autograd Function's backward (gmm with the rhs transposed, tgmm
-    cast to w's dtype) against ``jax.vjp`` of the Pallas kernel and of
-    ``ragged_dot``; group 1 is empty, so its dW is exactly 0."""
+    written in w's dtype) against ``jax.vjp`` of the Pallas kernel, whose dW
+    is the fp32 tgmm cast to w's dtype, and in fp32 of ``ragged_dot``; group
+    1 is empty, so its dW is exactly 0.  bf16: both sides round the same fp32
+    sums once, so they differ by at most one bf16 step."""
     n, K, N, E = 512, 128, 256, 4
     gs = np.asarray([200, 0, 112, 200], np.int32)
-    x, w, dy = _inputs(n, K, N, E, seed=1)
+    x, w, dy = _inputs(n, K, N, E, seed=1, dtype=dtype)
     xt, wt = _t(x).requires_grad_(), _t(w).requires_grad_()
     gmm.grouped_matmul(xt, wt, torch.from_numpy(gs)).backward(_t(dy))
     jx, jw, jgs = jnp.asarray(x), jnp.asarray(w), jnp.asarray(gs)
     _, f_k = jax.vjp(lambda a, b: jax_grouped_matmul(a, b, jgs, True), jx, jw)
-    _, f_r = jax.vjp(lambda a, b: _ragged(a, b, jgs), jx, jw)
-    for dx_j, dw_j in (f_k(jnp.asarray(dy)), f_r(jnp.asarray(dy))):
-        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), atol=2e-4)
-        np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dw_j), atol=2e-3)
-    assert wt.grad.dtype == torch.float32 and float(wt.grad[1].abs().max()) == 0.0
+    refs = [f_k(jnp.asarray(dy))]
+    if dtype == np.float32:
+        refs.append(jax.vjp(lambda a, b: _ragged(a, b, jgs), jx, jw)[1](jnp.asarray(dy)))
+    rtol = 0 if dtype == np.float32 else BF16_RTOL
+    for dx_j, dw_j in refs:
+        np.testing.assert_allclose(xt.grad.float().numpy(), np.asarray(dx_j, np.float32), rtol=rtol, atol=2e-4)
+        np.testing.assert_allclose(wt.grad.float().numpy(), np.asarray(dw_j, np.float32), rtol=rtol, atol=2e-3)
+    assert wt.grad.dtype == _t(w).dtype and float(wt.grad[1].float().abs().max()) == 0.0
 
 
 def test_plain_gmm_bf16_row_padding():
@@ -124,6 +130,22 @@ def test_plain_tgmm_matches_jax(gs):
         if e != E - 1:  # the last group also owns the rows past the sum
             assert float(out[e].abs().max()) == 0.0
     assert gmm.launches_tgmm == 0
+
+
+def test_plain_tgmm_bf16_matches_jax_cast():
+    """``plain_tgmm(out_dtype=bf16)`` is the fp32 sum rounded once, as JAX's
+    ``_tgmm_call(...).astype(bf16)`` (the grouped_matmul backward's dW); bf16
+    operands, an empty group, rows past the sum."""
+    n, K, N, E = 300, 128, 256, 4
+    gs = np.asarray([90, 0, 150, 40], np.int32)
+    x, _, dy = _inputs(n, K, N, E, seed=8, dtype=ml_dtypes.bfloat16)
+    out = gmm.tgmm(_t(x), _t(dy), torch.from_numpy(gs), E, out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == (E, K, N)
+    want = _tgmm_call(jnp.asarray(x), jnp.asarray(dy), jnp.asarray(gs), E, interpret=True).astype(jnp.bfloat16)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32), rtol=BF16_RTOL, atol=2e-3)
+    assert float(out[1].float().abs().max()) == 0.0
+    torch.testing.assert_close(out, gmm.plain_tgmm(_t(x), _t(dy), torch.from_numpy(gs), E).to(torch.bfloat16),
+                               rtol=0, atol=0)
 
 
 def test_gmm_refuses_other_devices():
@@ -196,3 +218,79 @@ def test_gmm_work_items_random_layouts():
             owner[rows] = g
         assert (stored == 1).all(), (n, sizes)
         np.testing.assert_array_equal(owner, _row_owners(sizes, n))
+
+
+# ------------------------------------------------------------- tgmm walk
+
+TGMM_LAYOUTS = [(n, sizes) for n, sizes in (
+    (1000, [250, 250, 250, 250]), (8192, [6000, 0, 2000, 192]), (430, [0, 130, 300, 0]),
+    (600, [0, 130, 300, 0]), (1, [0, 1, 0, 0]), (512, [128, 128, 0, 256]), (777, [5, 3, 1, 700, 0, 60, 8, 0]),
+    (300, [37, 120, 100, 0]), (8192, [0, 0, 8192, 0]))]
+TGMM_IDS = ["balanced", "skewed_empty", "empty_ends", "rows_past_sum", "one_row", "tile_edges", "many_in_one_tile",
+            "past_sum_small", "one_group"]
+
+
+def _check_tgmm_walk(n, sizes, K, N):
+    """Each (expert, K-tile, N-tile) is listed exactly once; each item's
+    slices cover its group's rows exactly once, from lo; an empty group's
+    items run no slice; the groups own the rows the plain rule gives them."""
+    E = len(sizes)
+    items = gmm.tgmm_work_items(np.cumsum(sizes).tolist(), n, K, N)
+    tiles_k, tiles_n = -(-K // gmm.GMM_TILE_M), -(-N // gmm.GMM_TILE_N)
+    assert sorted((e, tk, tn) for e, tk, tn, _, _ in items) == [
+        (e, tk, tn) for e in range(E) for tk in range(tiles_k) for tn in range(tiles_n)]
+    spans = {(e, lo, hi) for e, _, _, lo, hi in items}
+    assert sorted(e for e, _, _ in spans) == list(range(E))  # one row span an expert
+    owner = np.full(n, -1)
+    for e, lo, hi in spans:
+        slices = gmm.tgmm_slices(lo, hi)
+        covered = np.zeros(n, np.int64)
+        for r0, rows in slices:
+            assert 0 < rows <= gmm.GMM_SLICE and r0 + rows <= hi
+            covered[r0:r0 + rows] += 1
+        assert (covered[lo:hi] == 1).all() and covered.sum() == hi - lo
+        assert (len(slices) == 0) == (lo == hi)
+        owner[lo:hi] = e
+    np.testing.assert_array_equal(owner, _row_owners(sizes, n))
+    return items
+
+
+@pytest.mark.parametrize("n,sizes", TGMM_LAYOUTS, ids=TGMM_IDS)
+def test_tgmm_work_items_cover_every_tile_and_row_once(n, sizes):
+    """At the two training directions' widths (4096 x 11008 and 11008 x
+    4096, tiles that divide evenly) and at widths with partial tiles; and
+    running the items as the kernel does (each slice's x rows past the
+    group's end zeroed, dy as it is) gives plain_tgmm."""
+    for K, N in ((4096, 11008), (11008, 4096), (200, 264)):
+        _check_tgmm_walk(n, sizes, K, N)
+    if n > 1000:
+        return
+    K, N = 136, 264
+    x, _, dy = _inputs(n, K, N, len(sizes), seed=9)
+    xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
+    out = torch.full((len(sizes), K, N), float("nan"))
+    tm, tn_ = gmm.GMM_TILE_M, gmm.GMM_TILE_N
+    for e, tk, tn, lo, hi in _check_tgmm_walk(n, sizes, K, N):
+        acc = torch.zeros(tm, tn_)
+        for r0, rows in gmm.tgmm_slices(lo, hi):
+            xs = torch.zeros(gmm.GMM_SLICE, tm)
+            ys = torch.zeros(gmm.GMM_SLICE, tn_)
+            xk = xt[r0:r0 + gmm.GMM_SLICE, tk * tm:tk * tm + tm]
+            yk = dyt[r0:r0 + gmm.GMM_SLICE, tn * tn_:tn * tn_ + tn_]
+            xs[:xk.shape[0], :xk.shape[1]] = xk
+            ys[:yk.shape[0], :yk.shape[1]] = yk
+            xs[rows:] = 0  # the edge mask
+            acc += xs.T @ ys
+        k1, n1 = min(K, tk * tm + tm), min(N, tn * tn_ + tn_)
+        out[e, tk * tm:k1, tn * tn_:n1] = acc[:k1 - tk * tm, :n1 - tn * tn_]
+    torch.testing.assert_close(out, gmm.plain_tgmm(xt, dyt, torch.tensor(sizes), len(sizes)), rtol=0, atol=1e-4)
+
+
+def test_tgmm_work_items_random_layouts():
+    """The same coverage over random group sizes, with sums below n."""
+    rng = np.random.RandomState(10)
+    for _ in range(100):
+        E = int(rng.randint(1, 9))
+        n = int(rng.randint(1, 2000))
+        sizes = rng.multinomial(int(rng.randint(0, n + 1)), rng.dirichlet(np.full(E, 0.3))).tolist()
+        _check_tgmm_walk(n, sizes, int(8 * rng.randint(1, 80)), int(8 * rng.randint(1, 80)))

@@ -12,7 +12,8 @@ not have.)
 Tolerances: bf16 outputs within rtol = atol = 1.6e-2 (both sum bf16 products
 in fp32 and round once; the sums run in another order, so a value near a
 rounding boundary may land one bf16 step away), fp32 outputs within 1e-5 of
-each tensor's scale; an empty group's dW is exactly 0.
+each tensor's scale; an empty group's dW is exactly 0.  tgmm's bf16 dW is
+the rounding of the same kernel's fp32 dW, so the two are compared exactly.
 """
 
 import pytest
@@ -40,7 +41,7 @@ def _inputs(dev, n, K, N, E, seed=0):
 
 
 def _close_f32(got, want):
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))  # exact for want == 0
 
 
 # (n, K, N, group sizes); the forward contracts K into N columns, the dgrad
@@ -91,6 +92,66 @@ def test_gmm_kernels_match_plain(dev, case):
             assert bool((dw[e] == 0).all()), e
 
 
+def _check_tgmm(x, dy, group_sizes, E):
+    """tgmm with fp32 and bf16 output against plain_tgmm; the bf16 dW is the
+    fp32 dW rounded, bit for bit; an empty group's dW is exactly 0."""
+    before = gmm.launches_tgmm
+    dw32 = gmm.tgmm(x, dy, group_sizes, E)
+    dw16 = gmm.tgmm(x, dy, group_sizes, E, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gmm.launches_tgmm == before + 2
+    assert dw32.dtype == torch.float32 and dw16.dtype == torch.bfloat16
+    want = gmm.plain_tgmm(x, dy, group_sizes, E)
+    for e in range(E):  # each expert at its own scale; bf16: the fp32 bound and one rounding
+        _close_f32(dw32[e], want[e])
+        torch.testing.assert_close(dw16[e].float(), want[e].to(torch.bfloat16).float(), rtol=1.6e-2,
+                                   atol=1.6e-2 + 1e-5 * float(want[e].abs().max()))
+    assert torch.equal(dw16, dw32.to(torch.bfloat16))
+    for e, size in enumerate(group_sizes.tolist()[:-1]):
+        if size == 0:
+            assert bool((dw32[e] == 0).all()) and bool((dw16[e] == 0).all()), e
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_tgmm_kernel_matches_plain(dev, case):
+    n, K, N, gs = CASES[case]
+    x, _, dy = _inputs(dev, n, K, N, len(gs), seed=3)
+    _check_tgmm(x, dy, torch.tensor(gs, device=dev), len(gs))
+
+
+def test_tgmm_reads_each_feature_chunk(dev):
+    """x^T is the MN-major A operand: each consumer reads its own 64-feature
+    box of the K-tile.  Every 64-column chunk of x carries its own scale, so
+    a descriptor that reads another chunk, or the wrong stride inside one,
+    moves whole rows of dW."""
+    n, K, N = 640, 320, 512
+    x, _, dy = _inputs(dev, n, K, N, 2, seed=4)
+    scale = (torch.arange(K, device=dev) // 64 + 1).to(torch.bfloat16)
+    _check_tgmm((x * scale).contiguous(), dy, torch.tensor([300, 340], device=dev), 2)
+
+
+def test_tgmm_masks_the_next_group_inside_a_slice(dev):
+    """Group ends inside a 64-row slice (100 = 64 + 36, 230 = 228 + 2): the
+    last slice of groups 0 and 1 also loads the next group's rows.  Rows from
+    100 on carry x and dy 1e3 times larger, so without the edge mask the next
+    group's products swamp dW[0] (by ~1e6) and move dW[1] by about half."""
+    n, K, N = 512, 128, 256
+    x, _, dy = _inputs(dev, n, K, N, 3, seed=5)
+    big = torch.ones(n, 1, device=dev, dtype=torch.bfloat16)
+    big[100:] = 1e3
+    _check_tgmm((x * big).contiguous(), (dy * big).contiguous(), torch.tensor([100, 130, 282], device=dev), 3)
+
+
+def test_tgmm_of_no_rows_is_zero(dev):
+    x, _, dy = _inputs(dev, 64, 128, 256, 2, seed=6)
+    group_sizes = torch.zeros(2, dtype=torch.int64, device=dev)
+    before = gmm.launches_tgmm
+    for out_dtype in (torch.float32, torch.bfloat16):
+        dw = gmm.tgmm(x[:0], dy[:0], group_sizes, 2, out_dtype=out_dtype)
+        assert dw.shape == (2, 128, 256) and dw.dtype == out_dtype and not bool(dw.any())
+    assert gmm.launches_tgmm == before
+
+
 def test_grouped_matmul_backward_launches_the_kernels(dev):
     x, w, dy = _inputs(dev, 512, 128, 256, 4, seed=1)
     group_sizes = torch.tensor([200, 0, 112, 200], device=dev)
@@ -104,6 +165,7 @@ def test_grouped_matmul_backward_launches_the_kernels(dev):
                                rtol=1.6e-2, atol=1.6e-2)
     torch.testing.assert_close(wg.grad.float(), gmm.plain_tgmm(x, dy, group_sizes, 4).to(torch.bfloat16).float(),
                                rtol=1.6e-2, atol=1.6e-2)
+    assert torch.equal(wg.grad, gmm.tgmm(x, dy, group_sizes, 4).to(torch.bfloat16))  # no separate cast pass
     assert float(wg.grad[1].float().abs().max()) == 0.0
 
 
@@ -114,6 +176,8 @@ def test_gmm_is_deterministic(dev):
     assert torch.equal(gmm.gmm(dy, w, group_sizes, transpose_rhs=True),
                        gmm.gmm(dy, w, group_sizes, transpose_rhs=True))
     assert torch.equal(gmm.tgmm(x, dy, group_sizes, 4), gmm.tgmm(x, dy, group_sizes, 4))
+    assert torch.equal(gmm.tgmm(x, dy, group_sizes, 4, out_dtype=torch.bfloat16),
+                       gmm.tgmm(x, dy, group_sizes, 4, out_dtype=torch.bfloat16))
 
 
 def test_gmm_refuses_what_it_does_not_take(dev):

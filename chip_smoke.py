@@ -11,7 +11,9 @@ the run with a non-zero exit:
 2. build         the CUDA kernels compiled from ``internevo_tpu_torch/csrc``
                  (one nvcc per source, in parallel) and the Triton AdamW
                  kernel JIT-compiled, with registers and spills; a CUDA
-                 source whose ``ptxas`` log shows a spill fails the run;
+                 source whose ``ptxas`` log shows a spill fails the run, and
+                 so does a splash-backward or gmm kernel whose SASS holds no
+                 ``HGMMA`` (wgmma) or any ``HMMA`` (legacy mma.sync);
 3. kernel        the splash forward kernel against its plain version at the
                  InternLM-7B scoring shapes, bf16 on the card, with timings;
 4. scoring       InternLM-7B (``configs/7B_sft.py``, full width and depth,
@@ -24,7 +26,9 @@ the run with a non-zero exit:
 6. kernel_bwd    the two splash backward kernels against ``plain_backward``
                  at the training shape (one packed row of 4096 tokens), five
                  cases and one planted fault the check must catch, with
-                 timings beside SDPA's backward alone;
+                 timings beside SDPA's backward alone and beside compiled
+                 ``flex_attention``'s backward with a (same segment ∧
+                 causal) block mask;
 7. kernel_adamw  the fused AdamW kernel against its plain version at 7B leaf
                  shapes, with timings;
 8. train_grads   every param grad of a 2-layer model at 7B width through the
@@ -259,6 +263,26 @@ def phase_device():
     return smi
 
 
+def sass_mma_counts(source: str) -> dict:
+    """{kernel: [HGMMA, HMMA]}: the wgmma and the legacy mma.sync
+    instructions in each entry function of a built library, from
+    ``cuobjdump -sass``."""
+    cuobjdump = str(Path(build.find_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(source))], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : \S*?\d([a-z_]+_kernel)I", ln)
+        if m:
+            fn = m.group(1) + ("<64>" if "ILi64E" in ln else "<128>" if "ILi128E" in ln else "")
+            fn += "<float>" if "IfE" in ln else "<bf16>" if "I13__nv_bfloat16E" in ln else ""
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in ln
+            counts[fn][1] += " HMMA" in ln
+    return counts
+
+
 def phase_build(dev):
     sources = (splash.SOURCE, splash.BWD_SOURCE, gmm.SOURCE)
     t0 = time.perf_counter()
@@ -267,16 +291,22 @@ def phase_build(dev):
     for src in sources:
         build.load(src)
     cuda_s = time.perf_counter() - t0
-    spilled = []
+    spilled, legacy = [], {}
     for src, log in zip(sources, logs):
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        # the splash backward and the grouped matmuls are wgmma kernels: each
+        # entry must issue HGMMA and no HMMA (the forward is still WMMA)
+        mma = sass_mma_counts(src) if src != splash.SOURCE else None
         emit({"phase": "build", "source": f"internevo_tpu_torch/csrc/{src}", "seconds": cuda_s,
-              "ptxas": ptxas})
+              "ptxas": ptxas, "sass_hgmma_hmma": mma})
         # a spill serialises the wgmma mainloop (ptxas C7514/C7518): refuse it
         if any(int(b) for ln in ptxas for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)):
             spilled.append(src)
+        legacy.update({k: v for k, v in (mma or {}).items() if not v[0] or v[1]})
     if spilled:
         raise AssertionError(f"ptxas spilled registers in {spilled}")
+    if legacy:
+        raise AssertionError(f"kernels without wgmma, or with mma.sync: {legacy}")
     n = 2 * fused_adamw.BLOCK
     f32 = [torch.zeros(n, device=dev) for _ in range(4)]
     sc = fused_adamw.adamw_scalars(0, 0.9, 0.95, 1, 1, 1e-8, 0, 1, 0, dev)
@@ -544,7 +574,7 @@ def phase_kernel_bwd(dev):
           "rel_l2_dk": grads_close(planted.dk, timed_want[1])["rel_l2"]})
     if caught != ["dk", "dv"]:
         raise AssertionError(f"the backward check let a q window one tile short through: {caught}")
-    del planted, timed_want
+    del planted
     call = splash.BackwardCall(*timed, False, 0.0, None)
     dkdv_ms = cuda_time_ms(call.launch_dkdv)
     dq_ms = cuda_time_ms(call.launch_dq)
@@ -562,7 +592,9 @@ def phase_kernel_bwd(dev):
     # keeps its graph and each timed call runs only its backward
     o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     library_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), warmup=2, reps=5)
-    del o, qt, kt, vt, mask, dot
+    del o, mask
+    flex = flex_backward(qt, kt, vt, seg, dot, timed_want)
+    del qt, kt, vt, dot, timed_want
     fwd_flops = attention_flops(seg.cpu().numpy(), q.shape[2], q.shape[3])  # 2 products
     # The backward's work: 5 products (S, dP, dV, dK, dQ), 2.5x the forward's;
     # inputs q, k, v, dO, the segment ids, lse and delta (fp32, B×Hq×S) read
@@ -578,13 +610,39 @@ def phase_kernel_bwd(dev):
     emit({"phase": "kernel_bwd", "case": "timing packed_mha", "dkdv_ms": dkdv_ms, "dq_ms": dq_ms,
           "backward_ms": bwd_ms, "plain_ms": plain_ms, "library_ms": library_ms,
           "library": "scaled_dot_product_attention backward alone, bool mask (B, 1, S, S)",
-          "library_fwd_bwd_ms": library_fwd_bwd_ms,
+          "library_fwd_bwd_ms": library_fwd_bwd_ms, **flex,
           "bound_dkdv": b_dkdv, "bound_dq": b_dq, "bound_backward": b_all,
           "useful_tflop": 2.5 * fwd_flops / 1e12, "backward_tflops": 2.5 * fwd_flops / bwd_ms / 1e9})
     return {"dkdv": {"ms": dkdv_ms, "max_abs_err": worst["dkdv"], **b_dkdv},
             "dq": {"ms": dq_ms, "max_abs_err": worst["dq"], **b_dq},
             "plain_ms": plain_ms, "library_ms": library_ms, "library_fwd_bwd_ms": library_fwd_bwd_ms,
-            "backward_ms": bwd_ms}
+            "library_flex_ms": flex["library_flex_ms"], "backward_ms": bwd_ms}
+
+
+def flex_backward(qt, kt, vt, seg, dot, want) -> dict:
+    """The like-for-like yardstick of the splash backward: compiled
+    ``flex_attention`` with a (same segment ∧ causal) block mask, which skips
+    the masked blocks as the kernels do; its backward alone is timed, as
+    SDPA's.  (B, H, S, D) leaves; its grads are held loosely against
+    ``want``, the plain (dq, dk, dv), only to show it computes the same
+    function.  The port never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def same_run_causal(b, h, qi, ki):
+        return (qi >= ki) & (seg[b, qi] == seg[b, ki])
+
+    S = qt.shape[2]
+    t0 = time.perf_counter()
+    block_mask = create_block_mask(same_run_causal, seg.shape[0], None, S, S, device=qt.device)
+    o = torch.compile(flex_attention)(qt, kt, vt, block_mask=block_mask)
+    grads = torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    rel = [float((g.transpose(1, 2).float() - w.float()).norm() / w.float().norm()) for g, w in zip(grads, want)]
+    del grads
+    ms = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), warmup=2, reps=5)
+    return {"library_flex_ms": ms, "library_flex": "torch.compile(flex_attention) backward alone, block mask "
+            "(same segment ∧ causal)", "library_flex_compile_s": compile_s, "library_flex_rel_l2_dq_dk_dv": rel}
 
 
 def phase_kernel_adamw(dev):
@@ -1206,7 +1264,8 @@ def main() -> int:
     bwd_common = {"plain_ms": bwd["plain_ms"], "plain": "plain_backward (dq, dk, dv together)",
                   "library_ms": bwd["library_ms"],
                   "library": "scaled_dot_product_attention backward alone, bool mask (yardstick)",
-                  "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"], "backward_ms": bwd["backward_ms"]}
+                  "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"], "library_flex_ms": bwd["library_flex_ms"],
+                  "backward_ms": bwd["backward_ms"]}
     emit({"kernels": [
         {"name": "splash_attention_fwd", "route": "cuda", "source": f"internevo_tpu_torch/csrc/{splash.SOURCE}",
          "replaces": "internevo_tpu/ops/pallas/splash_attention.py:558 (_fwd_kernel_bsd), :457 (_fwd_kernel)",

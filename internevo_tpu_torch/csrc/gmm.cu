@@ -63,10 +63,7 @@
 // bit for bit the rounding of its fp32 dw.  Every output element is written
 // once, by one item: no atomics, and the result is deterministic.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -81,7 +78,7 @@ constexpr int GMM_BK = 64;                          // contraction slice: 128 by
 constexpr int GMM_STAGES = 4;
 constexpr int GMM_A_BYTES = GMM_BM * GMM_BK * 2;    // 16 KB
 constexpr int GMM_B_BYTES = GMM_BK * GMM_BN * 2;    // 32 KB
-constexpr int GMM_BOX = 64 * 64 * 2;                // 8 KB: a 64 x 64 bf16 box, one 128-byte line a row
+constexpr int GMM_BOX = BOX;                        // 8 KB: a 64 x 64 bf16 box, one 128-byte line a row
 constexpr int GMM_THREADS = 384;                    // producer warpgroup + 2 consumer warpgroups
 constexpr int GMM_CONSUMER_WARPS = 8;
 constexpr int GMM_OUT_BYTES = 2 * GMM_BOX;          // a consumer's staging: half its 64 x 256 rows at a time
@@ -107,107 +104,6 @@ __device__ __forceinline__ void band_order(int t, int tiles_m, int tiles_n, int&
   tn = (t % width) / rows;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
-          "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
-      "[%2];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, each in 16-byte units.  Every tile starts on a
-// 1024-byte boundary (one swizzle atom: 8 rows of 128 bytes), so the base
-// offset is 0.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// The descriptor of a 16-deep step k of a 64-deep operand tile.  K-major
-// (rows of 128 bytes along the contraction): 8-row groups 1024 bytes apart, k
-// advances 32 bytes in the swizzled row.  MN-major (rows of 128 bytes along
-// the output's rows or columns, one row a contraction index): 64-wide chunks
-// GMM_BOX apart (LBO), 8-k-row groups 1024 bytes apart (SBO), k advances 16
-// rows of 128 bytes.
-template <bool MN_MAJOR>
-__device__ __forceinline__ uint64_t operand_desc(uint32_t tile, int k) {
-  return MN_MAJOR ? smem_desc(tile + 2048 * k, GMM_BOX, 1024) : smem_desc(tile + 32 * k, 16, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
-  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map)),
-               "r"(src), "r"(c0), "r"(c1), "r"(c2)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-
-// Waits until this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-
-// Four 8 x 8 bf16 matrices to shared memory: this thread holds (row lane / 4,
-// columns 2 (lane % 4) + {0, 1}) of each and gives the address of row lane % 8
-// of matrix lane / 8.
-__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r0), "r"(r1),
-               "r"(r2), "r"(r3)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 __device__ __forceinline__ void consumer_sync(int cw) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");  // barrier 0 is __syncthreads
 }
@@ -221,13 +117,6 @@ __device__ __forceinline__ void zero_rows(uint32_t box, int valid, int cw) {
                  : "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   consumer_sync(cw);
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma instructions that own them.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 256, fp32) += A (64 x 16) @ B (16 x 256); each operand K-major (0)
@@ -254,22 +143,10 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
       "%128, %129, p, 1, 1, %131, %132;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32),
+        HOPPER_ACC8(d, 40), HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56), HOPPER_ACC8(d, 64), HOPPER_ACC8(d, 72),
+        HOPPER_ACC8(d, 80), HOPPER_ACC8(d, 88), HOPPER_ACC8(d, 96), HOPPER_ACC8(d, 104), HOPPER_ACC8(d, 112),
+        HOPPER_ACC8(d, 120)
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
@@ -448,13 +325,13 @@ __device__ __forceinline__ void gmm_body(const CUtensorMap& ta, const CUtensorMa
           const int valid = it.hi - (it.k0 + s * GMM_BK);
           if (valid < GMM_BK) zero_rows(a, valid, cw);
         }
-        fence_acc(acc);
+        fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < GMM_BK / 16; ++k)
-          wgmma_m64n256k16<A_MN, B_MN>(acc, operand_desc<A_MN>(a, k), operand_desc<B_MN>(b, k), (s | k) != 0);
+          wgmma_m64n256k16<A_MN, B_MN>(acc, box_desc<A_MN>(a, k), box_desc<B_MN>(b, k), (s | k) != 0);
         wgmma_commit();
-        fence_acc(acc);
+        fence_regs(acc);
         if (s > 0) {  // the previous stage's wgmma group is done: release it
           wgmma_wait<1>();
           if (lane == 0) mbar_arrive(empty(prev));
@@ -468,7 +345,7 @@ __device__ __forceinline__ void gmm_body(const CUtensorMap& ta, const CUtensorMa
       // unconditional, as every wgmma wait is kept out of divergent paths: a
       // conditional one makes the compiler serialise the mainloop's wgmmas
       wgmma_wait<0>();
-      fence_acc(acc);
+      fence_regs(acc);
       if (it.slices > 0 && lane == 0) mbar_arrive(empty(prev));
       const bool live = it.slices > 0;  // else an empty group's dw: zeros
       auto v = [&](int i) { return live ? acc[i] : 0.f; };
@@ -551,42 +428,6 @@ __global__ void __launch_bounds__(GMM_THREADS, 1)
 }
 
 // ---------------------------------------------------------------- host side
-
-// cuTensorMapEncodeTiled, looked up in libcuda through the runtime, so that
-// the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                                             &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 tensor map with 128-byte swizzle over a row-major tensor whose dims
-// are given innermost first; box likewise.  Elements out of bounds read as
-// zero and are not written.
-bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims, const cuuint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  cuuint64_t strides[2];
-  cuuint64_t stride = 2;
-  for (int d = 0; d + 1 < rank; ++d) strides[d] = stride *= dims[d];
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn != nullptr && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-                             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // The six instantiations, 2 * kind + (fp32 out); each gets its dynamic shared
 // memory limit raised once a device, before its first launch there.

@@ -9,30 +9,63 @@
 // that keeps the whole fp32 dq stripe of its head group, (G, S, D), in VMEM
 // and adds into it from every step.  At S = 4096, D = 128 that stripe is 2 MB
 // a head; an SM has 227 KB, and CUDA blocks run in no order, so no sum can
-// carry from one block to the next.  FlashAttention-2 answers with fp32
-// atomicAdd into a dq buffer, which makes dq depend on the order in which
+// carry from one block to the next.  FlashAttention-2 and -3 answer with fp32
+// atomic adds into a dq buffer, which makes dq depend on the order in which
 // blocks finish.  This source splits the work instead, and every output
 // element is one fixed sequence of fp32 sums, so two runs give the same bits:
 //
-//  - splash_bwd_dkdv_kernel: one block per (kv tile, kv head, batch).  It
-//    walks the q heads of its kv group and, for each, the q tiles from the
-//    causal diagonal up to q_hi (the last q tile of the segment run at the kv
-//    tile's last token, computed by the wrapper), keeps dK and dV in fp32
-//    shared memory, and writes them once.
-//  - splash_bwd_dq_kernel: one block per (q tile, q head, batch).  It walks
-//    the kv tiles from kv_lo (the segment-run start at the tile's first
-//    token) to the diagonal -- the forward's loop -- keeps dQ in fp32 shared
-//    memory, and writes it once.
+//  - splash_bwd_dkdv_kernel: one block per (kv head, 128-row kv tile, batch).
+//    It walks the q heads of its kv group in order and, for each, the 64-row
+//    q tiles from the causal diagonal up to q_hi (the last q tile of the
+//    segment run at the kv tile's last token, computed by the wrapper), and
+//    keeps dK and dV in registers.
+//  - splash_bwd_dq_kernel: one block per (q head, 128-row q tile, batch).  It
+//    walks the 64-row kv tiles from kv_lo (the segment-run start at the
+//    tile's first token) to the diagonal -- the forward's loop -- and keeps dQ
+//    in registers.
+//
+// The heads vary fastest in the grid, so that the heads of one tile run
+// together and the long causal walks start first (dQ walks its tiles in
+// reverse); with the tile fastest, the last head's long walks ran last and
+// left the card idle behind them.
 //
 // The price is recomputing S and dP in both kernels: 7 tile products for
 // each visited (q, kv) tile pair where the fused TPU kernel does 5.
 //
 // What bounds it on this card: at packed 7B shapes (head_dim 128, segments
-// of at most 2048 tokens) each visited pair of 64-row tiles does 7 products
-// of 64x64x128 against ~50 KB of tile loads, so the tensor cores are the
-// limit.  This first kernel uses WMMA (16x16x16 bf16, fp32 accumulate) and
-// stages S, dP, P, dS and the accumulators through shared memory, one block
-// of 4 warps per SM; wgmma, TMA and register-resident tiles are later work.
+// of 64 to 2048 tokens) each visited pair of 64-row tiles does 7 products of
+// 64 x 64 x 128 against 32 KB of streamed tile loads, so the tensor cores
+// and the shared memory that feeds them are the limit.  Both kernels are one warp-specialised body (bwd_body<D, DKDV>,
+// FlashAttention-3's backward shape without its atomics): 384 threads, 3
+// warpgroups.  Warpgroup 0 is the producer.  Its thread 0 loads the item's
+// two fixed operands once (K and V of the 128 kv rows, or Q and dO of the 128
+// q rows) and streams the two operands of each 64-row tile ((Q, dO) or (K,
+// V)) by TMA (4-D maps over (D, H, S, B), 128-byte swizzle; rows past S read
+// as zeros) into a ring of 4 stages with full and empty mbarriers.  Its warps
+// 1 to 3 write each tile's per-row data beside it (lse·log2e, delta, the
+// segment ids) with flags: all lse finite, all rows in range and of one
+// segment.  Warpgroups 1 and 2 are consumers, each owning 64 of the item's
+// 128 rows:
+//
+//   S  = A0 B0ᵀ, dP = A1 B1ᵀ    wgmma m64n64k16, B K-major in shared memory;
+//                               A K-major in shared memory (dK/dV: Sᵀ = K Qᵀ,
+//                               dPᵀ = V dOᵀ) or, for dQ, Q and dO as register
+//                               fragments loaded once an item (ldmatrix)
+//   P, dS in registers          mask, exp2, dropout, dS = P∘(dP∘drop − delta)
+//   dV += (P∘drop)ᵀ dO          wgmma m64n(D)k16 with A = the bf16 P∘drop /
+//   dK += dSᵀ Q, dQ += dS K     dS packed from the accumulator (whose layout
+//                               is the A-fragment layout), B = the streamed
+//                               tile read MN-major
+//
+// and stores its rows of dK and dV (or dQ) as bf16 at the end.  setmaxnreg
+// gives the consumers 240 registers and the producer 24.  A tile pair wholly
+// below the diagonal, in range and inside one segment (the producer's and the
+// consumer's flags) skips the per-element causal and segment tests: the
+// elementwise step is one of four loops specialised on (masked, dropout) and
+// chosen once a tile, because with the tests inside one loop the compiler
+// branched on them per element and the step took longer than all four
+// products.  A kept element is the same expression in every loop, so the
+// paths give the same bits.
 //
 // Math, with the forward's natural-log lse and delta = rowsum(dO∘O) − dlse
 // computed by the wrapper in plain torch (the JAX package computes it in XLA
@@ -50,43 +83,55 @@
 // head), base = seed0 + (b + batch0) * 0x632BE59B; drop = 1/(1-rate) if kept,
 // else 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // q rows per tile; BLOCK_Q in the wrapper
-constexpr int BK = 64;  // kv rows per tile; BLOCK_K in the wrapper
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+typedef __nv_bfloat16 bf16;
+
+constexpr int TILE = 64;      // rows of a streamed tile and of a consumer's share of an item
+constexpr int ITEM = 128;     // rows of an item: kv rows (dK/dV) or q rows (dQ)
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
-  const __nv_bfloat16* q;     // (B, S, Hq, D)
-  const __nv_bfloat16* k;     // (B, Sk, Hkv, D)
-  const __nv_bfloat16* v;     // (B, Sk, Hkv, D)
-  const __nv_bfloat16* dout;  // (B, S, Hq, D)
-  const float* lse;           // (B, Hq, S), natural log, -inf on empty rows
-  const float* delta;         // (B, Hq, S)
-  const int* q_seg;           // (B, S)   (unused when use_seg == 0)
-  const int* kv_seg;          // (B, Sk)
-  const int* kv_lo;           // (B, nq)  first kv tile each q tile visits
-  const int* q_hi;            // (B, nk)  last q tile each kv tile visits
-  __nv_bfloat16* dq;          // (B, S, Hq, D)
-  __nv_bfloat16* dk;          // (B, Sk, Hkv, D)
-  __nv_bfloat16* dv;          // (B, Sk, Hkv, D)
-  int S, Sk, Hq, Hkv, nq, nk;
-  float scale;                // softmax_scale
-  float scale_log2;           // softmax_scale * log2(e)
+  const float* lse;    // (B, Hq, S), natural log, -inf on empty rows
+  const float* delta;  // (B, Hq, S)
+  const int* q_seg;    // (B, S)   (unused when use_seg == 0)
+  const int* kv_seg;   // (B, Sk)
+  const int* kv_lo;    // (B, cdiv(S, 128))  first 64-row kv tile each 128-row q item visits
+  const int* q_hi;     // (B, cdiv(Sk, 128)) last 64-row q tile each 128-row kv item visits
+  bf16* dq;            // (B, S, Hq, D)
+  bf16* dk;            // (B, Sk, Hkv, D)
+  bf16* dv;            // (B, Sk, Hkv, D)
+  int S, Sk, Hq, Hkv;
+  float scale;         // softmax_scale
+  float scale_log2;    // softmax_scale * log2(e)
   int causal, use_seg, dropout;
   uint32_t keep_thresh;
   float drop_scale;
   uint32_t seed0, row0, col0, head0, batch0;
 };
+
+// Per-row data of one streamed tile, written by the producer's warps 1 to
+// 3: the q rows' lse·log2e (-inf past S) and delta (dK/dV), whether every
+// lse is finite (always so for dQ), the tile's segment ids (q rows for dK/dV,
+// kv rows for dQ), and whether every row is in range and carries seg[0].
+struct Side {
+  float lse2[TILE];
+  float delta[TILE];
+  int seg[TILE];
+  int finite, uniform;
+  int pad[2];
+};
+
+template <int D>
+constexpr int smem_bytes() {
+  return (4 + 2 * STAGES) * (D / 64) * BOX + STAGES * (int)sizeof(Side) + (2 * STAGES + 1) * 8 + 1024;
+}
+static_assert(smem_bytes<128>() <= 232448, "the tiles fit a block's shared memory");
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -97,329 +142,466 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
-// keep-and-scale factor of (q row qi, kv col kj, q head hq)
-__device__ __forceinline__ float drop_factor(const Params& p, uint32_t base, int qi, int kj, int hq) {
+// whether dropout keeps (batch b, q row qi, kv col kj, q head hq)
+__device__ __forceinline__ bool drop_keeps(const Params& p, int b, int qi, int kj, int hq) {
+  const uint32_t base = p.seed0 + ((uint32_t)b + p.batch0) * 0x632BE59Bu;
   const uint32_t row = (uint32_t)qi + p.row0, col = (uint32_t)kj + p.col0, head = (uint32_t)hq + p.head0;
-  const uint32_t h = fmix32(row * 0x9E3779B1u ^ col * 0x85EBCA77u ^ head * 0xC2B2AE3Du ^ base);
-  return h >= p.keep_thresh ? p.drop_scale : 0.f;
+  return fmix32(row * 0x9E3779B1u ^ col * 0x85EBCA77u ^ head * 0xC2B2AE3Du ^ base) >= p.keep_thresh;
 }
 
-// 64 rows of one head into a (64, D + 8) shared tile; rows >= n_valid are zero
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// exp2, and the consumers' loads of per-column data, as volatile asm: they
+// stay in program order, so the compiler cannot hoist all 16 pairs of loads
+// ahead of the first exp2 (32 more live registers beside S, dP, dK and dV)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float2 lds_f2(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(smem_u32(p)));
+  return v;
+}
+
+// True if v is true in every thread of consumer warpgroup cw (named barrier
+// 1 + cw; barrier 0 is __syncthreads).
+__device__ __forceinline__ bool warpgroup_all(bool v, int cw) {
+  uint32_t all;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\nbar.red.and.pred p, %2, 128, q;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(all)
+      : "r"((uint32_t)v), "r"(1 + cw)
+      : "memory");
+  return all != 0;
+}
+
+// d (64 x D) += A (64 x 16, registers) @ B (16 x D, shared memory, MN-major)
 template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, size_t stride,
-                                          int n_valid) {
-  constexpr int LDH = D + 8, VEC = 8, VPR = D / VEC;
-  for (int i = threadIdx.x; i < 64 * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  if constexpr (D == 128) {
+    wgmma_m64n128k16_rs<1>(d, a, db, scale_d);
+  } else {
+    wgmma_m64n64k16_rs<1>(d, a, db, scale_d);
   }
 }
 
-// One warp: C[16 x 64] (fp32) = A[16 x D] · B[64 x D]ᵀ, A and B row-major bf16
-template <int D>
-__device__ __forceinline__ void mm_abt(float* C, int ldc, const __nv_bfloat16* A, int lda,
-                                       const __nv_bfloat16* B, int ldb) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + kk, lda);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, B + j * 16 * ldb + kk, ldb);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
+// The item's walk over streamed tiles: `heads` passes (the q heads of a kv
+// group for dK/dV, one for dQ) over the 64-row tiles [lo, hi] (none if hi <
+// lo).  Producer and consumers walk it alike, so their ring parities agree.
+struct Walk {
+  int heads, lo, hi;
+};
+
+template <bool DKDV>
+__device__ __forceinline__ Walk make_walk(const Params& p, int item, int b) {
+  Walk w;
+  if (DKDV) {
+    w.heads = p.Hq / p.Hkv;
+    w.lo = p.causal ? item * ITEM / TILE : 0;
+    w.hi = min(__ldg(p.q_hi + (size_t)b * ((p.Sk + ITEM - 1) / ITEM) + item), (p.S - 1) / TILE);
+  } else {
+    w.heads = 1;
+    w.lo = __ldg(p.kv_lo + (size_t)b * ((p.S + ITEM - 1) / ITEM) + item);
+    w.hi = (p.Sk - 1) / TILE;
+    if (p.causal) w.hi = min(w.hi, (min(item * ITEM + ITEM, p.S) - 1) / TILE);
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(C + j * 16, acc[j], ldc, wmma::mem_row_major);
+  return w;
 }
 
-// One warp: C[16 x D] (fp32, shared) += A[16 x 64] · B[64 x D], A and B row-major bf16
-template <int D>
-__device__ __forceinline__ void mm_acc_ab(float* C, int ldc, const __nv_bfloat16* A, int lda,
-                                          const __nv_bfloat16* B, int ldb) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wmma::load_matrix_sync(a[kk], A + kk * 16, lda);
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-    wmma::load_matrix_sync(o, C + j * 16, ldc, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, B + kk * 16 * ldb + j * 16, ldb);
-      wmma::mma_sync(o, a[kk], b, o);
-    }
-    wmma::store_matrix_sync(C + j * 16, o, ldc, wmma::mem_row_major);
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
+  if (++stage == STAGES) {
+    stage = 0;
+    phase ^= 1;
   }
 }
 
-template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (4 * 64 * (D + 8) + 2 * BK * (BQ + 8)) +
-         sizeof(float) * (2 * BK * (BQ + 4) + 2 * BK * (D + 4) + 2 * BQ) + sizeof(int) * (BQ + BK);
-}
+// f0, f1: the item's fixed operands (dK/dV: K, V; dQ: Q, dO); s0, s1: the
+// streamed ones (dK/dV: Q, dO; dQ: K, V).  Each a 4-D map over (D, H, rows,
+// B) with 64 x 1 x 64 x 1 boxes.
+template <int D, bool DKDV>
+__device__ __forceinline__ void bwd_body(const CUtensorMap& f0, const CUtensorMap& f1, const CUtensorMap& s0,
+                                         const CUtensorMap& s1, const Params& p) {
+  constexpr int NB = D / 64;                // 64-column boxes a row
+  constexpr uint32_t FIXED = 2 * NB * BOX;  // one fixed operand: 128 rows
+  constexpr uint32_t STREAM = NB * BOX;     // one streamed operand: 64 rows
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  __shared__ int rows_seg[4];  // per consumer: see below
+  const uint32_t pad = (1024 - (smem_u32(bwd_smem) & 1023)) & 1023;
+  const uint32_t base = smem_u32(bwd_smem) + pad;
+  const uint32_t fixed0 = base, fixed1 = base + FIXED, ring = base + 2 * FIXED;
+  Side* sides = reinterpret_cast<Side*>(bwd_smem + pad + 2 * FIXED + STAGES * 2 * STREAM);
+  const uint32_t bars = smem_u32(sides + STAGES);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t fixed_bar = bars + 8 * 2 * STAGES;
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (4 * 64 * (D + 8) + BQ * (BK + 8)) +
-         sizeof(float) * (2 * BQ * (BK + 4) + BQ * (D + 4)) + sizeof(int) * BK;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) splash_bwd_dkdv_kernel(Params p) {
-  constexpr int LDH = D + 8;   // bf16 q/k/v/dO tiles
-  constexpr int LDP = BQ + 8;  // bf16 Pᵀ and dSᵀ (kv rows, q columns)
-  constexpr int LDS = BQ + 4;  // fp32 Sᵀ and dPᵀ
-  constexpr int LDO = D + 4;   // fp32 dK and dV accumulators
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + BK * LDH;
-  __nv_bfloat16* Qs = Vs + BK * LDH;
-  __nv_bfloat16* dOs = Qs + BQ * LDH;
-  __nv_bfloat16* Pt = dOs + BQ * LDH;
-  __nv_bfloat16* dSt = Pt + BK * LDP;
-  float* St = reinterpret_cast<float*>(dSt + BK * LDP);
-  float* dPt = St + BK * LDS;
-  float* dKa = dPt + BK * LDS;
-  float* dVa = dKa + BK * LDO;
-  float* lse_s = dVa + BK * LDO;  // lse * log2(e) of the tile's q rows
-  float* dlt_s = lse_s + BQ;      // delta of the tile's q rows
-  int* qseg_s = reinterpret_cast<int*>(dlt_s + BQ);
-  int* kseg_s = qseg_s + BQ;
-
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.z, head = blockIdx.x;  // kv head (dK/dV) or q head (dQ)
+  // the heads of one item launch together; dQ: the longest causal walks (the
+  // last q tiles) first
+  const int item = (!DKDV && p.causal) ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int group = p.Hq / p.Hkv;
-  const int k_start = kt * BK;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  const size_t kv_stride = (size_t)p.Hkv * D;
-  const size_t kv_off = ((size_t)b * p.Sk + k_start) * kv_stride + (size_t)hk * D;
-  load_rows<D>(Ks, p.k + kv_off, kv_stride, p.Sk - k_start);
-  load_rows<D>(Vs, p.v + kv_off, kv_stride, p.Sk - k_start);
-  for (int i = tid; i < BK; i += NTHREADS) {
-    const int kj = k_start + i;
-    kseg_s[i] = (p.use_seg && kj < p.Sk) ? p.kv_seg[(size_t)b * p.Sk + kj] : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1 + 96);           // the expect_tx, and each lane of warps 1 to 3
+      mbar_init(empty(s), CONSUMER_WARPS);  // one arrival from each consumer warp
+    }
+    mbar_init(fixed_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < BK * LDO; i += NTHREADS) dKa[i] = dVa[i] = 0.f;
   __syncthreads();
 
-  // in the elementwise phase each lane pair owns one kv row of this warp's 16
-  const int r_loc = warp * 16 + lane / 2;
-  const int half = lane & 1;
-  const int kj = k_start + r_loc;
-  const int kseg = kseg_s[r_loc];
-  const uint32_t base = p.seed0 + ((uint32_t)b + p.batch0) * 0x632BE59Bu;
-  const int qt_lo = p.causal ? k_start / BQ : 0;
-  const int qt_hi = p.q_hi[(size_t)b * p.nk + kt];
-  const size_t q_stride = (size_t)p.Hq * D;
-
-  for (int g = 0; g < group; ++g) {
-    const int hq = hk * group + g;
-    const float* lse_h = p.lse + ((size_t)b * p.Hq + hq) * p.S;
-    const float* dlt_h = p.delta + ((size_t)b * p.Hq + hq) * p.S;
-    for (int qt = qt_lo; qt <= qt_hi; ++qt) {
-      const int q_start = qt * BQ;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      const size_t q_off = ((size_t)b * p.S + q_start) * q_stride + (size_t)hq * D;
-      load_rows<D>(Qs, p.q + q_off, q_stride, p.S - q_start);
-      load_rows<D>(dOs, p.dout + q_off, q_stride, p.S - q_start);
-      for (int i = tid; i < BQ; i += NTHREADS) {
-        const int qi = q_start + i;
-        const bool in = qi < p.S;
-        lse_s[i] = in ? lse_h[qi] * LOG2E : -INFINITY;
-        dlt_s[i] = in ? dlt_h[qi] : 0.f;
-        qseg_s[i] = (p.use_seg && in) ? p.q_seg[(size_t)b * p.S + qi] : 0;
-      }
-      __syncthreads();
-
-      // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ on this warp's 16 kv rows
-      mm_abt<D>(St + warp * 16 * LDS, LDS, Ks + warp * 16 * LDH, LDH, Qs, LDH);
-      mm_abt<D>(dPt + warp * 16 * LDS, LDS, Vs + warp * 16 * LDH, LDH, dOs, LDH);
-      __syncwarp();
-
-      const float* srow = St + r_loc * LDS;
-      const float* dprow = dPt + r_loc * LDS;
-      __nv_bfloat16* prow = Pt + r_loc * LDP;
-      __nv_bfloat16* dsrow = dSt + r_loc * LDP;
-      for (int c = half * (BQ / 2); c < (half + 1) * (BQ / 2); ++c) {
-        const int qi = q_start + c;
-        const bool ok = kj < p.Sk && qi < p.S && (!p.causal || qi >= kj) &&
-                        (!p.use_seg || qseg_s[c] == kseg) && lse_s[c] != -INFINITY;
-        const float pv = ok ? exp2f(srow[c] * p.scale_log2 - lse_s[c]) : 0.f;
-        float dp = dprow[c], pd = pv;
-        if (p.dropout) {
-          const float dr = drop_factor(p, base, qi, kj, hq);
-          pd = pv * dr;
-          dp = dp * dr;
+  if (threadIdx.x < 128) {
+    // producer warpgroup: thread 0 loads the tiles; warps 1 to 3 write the
+    // tile's per-row data, each lane rows lane and lane + 32, loaded before
+    // the wait for the stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const Walk w = make_walk<DKDV>(p, item, b);  // each role derives it after setmaxnreg
+    int stage = 0;
+    uint32_t phase = 0;
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(fixed_bar, 2 * FIXED);
+      for (int c = 0; c < 2; ++c)  // two 64-row halves of NB boxes each
+        for (int j = 0; j < NB; ++j) {
+          tma_load_4d(fixed0 + (c * NB + j) * BOX, &f0, 64 * j, head, item * ITEM + TILE * c, b, fixed_bar);
+          tma_load_4d(fixed1 + (c * NB + j) * BOX, &f1, 64 * j, head, item * ITEM + TILE * c, b, fixed_bar);
         }
-        prow[c] = __float2bfloat16(pd);
-        dsrow[c] = __float2bfloat16(pv * (dp - dlt_s[c]));
+      for (int g = 0; g < w.heads; ++g)
+        for (int tile = w.lo; tile <= w.hi; ++tile) {
+          const int sh = DKDV ? head * group + g : head / group;  // the streamed operands' head
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect_tx(full(stage), 2 * STREAM);
+          for (int j = 0; j < NB; ++j) {
+            tma_load_4d(ring + stage * 2 * STREAM + j * BOX, &s0, 64 * j, sh, tile * TILE, b, full(stage));
+            tma_load_4d(ring + stage * 2 * STREAM + STREAM + j * BOX, &s1, 64 * j, sh, tile * TILE, b, full(stage));
+          }
+          advance(stage, phase);
+        }
+    } else if (warp == 1 || warp == 2) {  // dK/dV: the q rows' lse·log2e (warp 1) or delta (warp 2)
+      for (int g = 0; g < w.heads; ++g) {
+        const int row = (b * p.Hq + head * group + g) * p.S;  // B·Hq·S < 2^31 (the wrapper checks)
+        for (int tile = w.lo; tile <= w.hi; ++tile) {
+          float v[2];
+          bool finite = true;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = tile * TILE + lane + 32 * h;
+            const bool in = DKDV && r < p.S;
+            if (warp == 1) v[h] = in ? __ldg(p.lse + row + r) * LOG2E : -INFINITY;
+            else v[h] = in ? __ldg(p.delta + row + r) : 0.f;
+            finite = finite && v[h] != -INFINITY;
+          }
+          finite = !DKDV || __all_sync(0xffffffffu, finite);
+          mbar_wait(empty(stage), phase ^ 1);
+          float* dst = warp == 1 ? sides[stage].lse2 : sides[stage].delta;
+          dst[lane] = v[0];
+          dst[lane + 32] = v[1];
+          if (warp == 1 && lane == 0) sides[stage].finite = finite;
+          mbar_arrive(full(stage));  // each lane releases its own writes
+          advance(stage, phase);
+        }
       }
-      __syncwarp();
-
-      // dV += (P∘drop)ᵀ dO and dK += dSᵀ Q on this warp's kv rows
-      mm_acc_ab<D>(dVa + warp * 16 * LDO, LDO, Pt + warp * 16 * LDP, LDP, dOs, LDH);
-      mm_acc_ab<D>(dKa + warp * 16 * LDO, LDO, dSt + warp * 16 * LDP, LDP, Qs, LDH);
-      __syncwarp();
+    } else if (warp == 3) {  // the tile's segment ids
+      const int* seg_src = DKDV ? p.q_seg + (size_t)b * p.S : p.kv_seg + (size_t)b * p.Sk;
+      const int rows = DKDV ? p.S : p.Sk;
+      for (int g = 0; g < w.heads; ++g)
+        for (int tile = w.lo; tile <= w.hi; ++tile) {
+          int seg[2];
+          bool in = true;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = tile * TILE + lane + 32 * h;
+            seg[h] = (p.use_seg && r < rows) ? __ldg(seg_src + r) : 0;
+            in = in && r < rows;
+          }
+          const int seg0 = __shfl_sync(0xffffffffu, seg[0], 0);
+          const bool uniform = __all_sync(0xffffffffu, in && seg[0] == seg0 && seg[1] == seg0);
+          mbar_wait(empty(stage), phase ^ 1);
+          Side& sd = sides[stage];
+          sd.seg[lane] = seg[0];
+          sd.seg[lane + 32] = seg[1];
+          if (lane == 0) sd.uniform = uniform;
+          mbar_arrive(full(stage));
+          advance(stage, phase);
+        }
     }
+    return;
   }
 
-  if (kj < p.Sk) {
-    const size_t off = (((size_t)b * p.Sk + kj) * p.Hkv + hk) * D;
-    const float* krow = dKa + r_loc * LDO;
-    const float* vrow = dVa + r_loc * LDO;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
-      p.dk[off + c] = __float2bfloat16(krow[c] * p.scale);
-      p.dv[off + c] = __float2bfloat16(vrow[c]);
+  // consumers: rows [64 cw, 64 cw + 64) of the item
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int row_base = item * ITEM + TILE * cw;  // first row of this consumer
+  const int rloc = 16 * warp + lane / 4;         // accumulator rows rloc, rloc + 8
+  const int nrows = DKDV ? p.Sk : p.S;
+  const Walk w = make_walk<DKDV>(p, item, b);
+
+  // the rows' own data: dQ's lse·log2e and delta.  rows_uniform: every row of
+  // the 64 in range, of one segment, with a finite lse (the warpgroup's
+  // threads hold two rows each, all 64 together)
+  float rlse2[2], rdelta[2];
+  const int* seg_src = DKDV ? p.kv_seg + (size_t)b * p.Sk : p.q_seg + (size_t)b * p.S;
+  const size_t lse_row = ((size_t)b * p.Hq + head) * p.S;  // dQ: this q head's rows
+  const int seg_first = (p.use_seg && row_base < nrows) ? __ldg(seg_src + row_base) : 0;
+  bool own_uniform = true;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row_base + rloc + 8 * h;
+    const bool in = r < nrows;
+    const int rseg = (p.use_seg && in) ? __ldg(seg_src + r) : 0;
+    rlse2[h] = (!DKDV && in) ? __ldg(p.lse + lse_row + r) * LOG2E : -INFINITY;
+    rdelta[h] = (!DKDV && in) ? __ldg(p.delta + lse_row + r) : 0.f;
+    own_uniform = own_uniform && in && rseg == seg_first && (DKDV || rlse2[h] != -INFINITY);
+  }
+  // kept in shared memory, read once a step, to spare two registers:
+  // rows_seg[cw] the first row's segment id, rows_seg[2 + cw] rows_uniform
+  const bool rows_uniform = warpgroup_all(own_uniform, cw);
+  if (threadIdx.x % 128 == 0) {
+    rows_seg[cw] = seg_first;
+    rows_seg[2 + cw] = rows_uniform;
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+
+  float acc[DKDV ? 2 : 1][D / 2];  // dK/dV: [0] dV, [1] dK; dQ: [0] dQ
+  mbar_wait(fixed_bar, 0);
+  const uint32_t a0 = fixed0 + cw * NB * BOX, a1 = fixed1 + cw * NB * BOX;
+  // dQ: this consumer's Q and dO rows as bf16 A fragments, loaded once, so
+  // that S and dP read only their B operand from shared memory (shared-memory
+  // bandwidth bounds these products; dK/dV has no registers to spare for K
+  // and V).  Fragment k: rows 16 warp + {0..15}, columns 16 k + {0..15};
+  // lane l addresses row l % 8 + 8 ((l / 8) & 1), 16-byte chunk 2 k + l / 16,
+  // in the 128-byte swizzle
+  uint32_t qf[DKDV ? 1 : D / 16][4], of[DKDV ? 1 : D / 16][4];
+  if constexpr (!DKDV) {
+    const int row = 16 * warp + lane % 8 + 8 * ((lane / 8) & 1);
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {
+      const int chunk = 2 * k + lane / 16;
+      const uint32_t off = (chunk / 8) * BOX + row * 128 + (((chunk % 8) ^ (row % 8)) << 4);
+      ldmatrix_x4(a0 + off, qf[k]);
+      ldmatrix_x4(a1 + off, of[k]);
+    }
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int g = 0; g < w.heads; ++g)
+    for (int tile = w.lo; tile <= w.hi; ++tile) {
+      const int hq = DKDV ? head * group + g : head;
+      const bool first = g == 0 && tile == w.lo;  // its products overwrite acc
+      const uint32_t b0 = ring + stage * 2 * STREAM, b1 = b0 + STREAM;
+      mbar_wait(full(stage), phase);
+      const Side& sd = sides[stage];
+
+      // S = A0 B0ᵀ and dP = A1 B1ᵀ, their k steps interleaved
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        if constexpr (DKDV) {
+          wgmma_m64n64k16_ss<0, 0>(s, box_desc<false>(a0, k), box_desc<false>(b0, k), k);
+          wgmma_m64n64k16_ss<0, 0>(dp, box_desc<false>(a1, k), box_desc<false>(b1, k), k);
+        } else {
+          wgmma_m64n64k16_rs<0>(s, qf[k], box_desc<false>(b0, k), k);
+          wgmma_m64n64k16_rs<0>(dp, of[k], box_desc<false>(b1, k), k);
+        }
+      }
+      wgmma_commit();
+
+      // While they run: which of this thread's 32 elements are kept (bit i of
+      // keep) and, with dropout, not dropped (bit i of kept).  Accumulator
+      // (row, col) of register i: row rloc + 8 ((i >> 1) & 1), col 8 (i >> 2)
+      // + 2 (lane % 4) + (i & 1); rows are this consumer's (kv rows for dK/dV,
+      // q rows for dQ), columns the streamed tile's.  A tile pair wholly below
+      // the diagonal, in range and in one segment keeps every element.
+      const bool below = DKDV ? tile * TILE > row_base : row_base > tile * TILE;
+      const bool fast = rows_seg[2 + cw] && sd.uniform && sd.finite && (!p.causal || below) &&
+                        (!p.use_seg || sd.seg[0] == rows_seg[cw]);
+      uint32_t keep = ~0u, kept = ~0u;
+      if (!fast) {
+        int rs[2];  // this thread's rows' segment ids, read again: a masked tile is the rarer case
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row_base + rloc + 8 * h;
+          rs[h] = p.use_seg && r < nrows ? __ldg(seg_src + r) : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+          const int r = row_base + rloc + 8 * h, c = tile * TILE + col;
+          const int qi = DKDV ? c : r, kj = DKDV ? r : c;
+          const bool finite = (DKDV ? sd.lse2[col] : rlse2[h]) != -INFINITY;
+          const bool in = qi < p.S && kj < p.Sk && (!p.causal || qi >= kj) && (!p.use_seg || sd.seg[col] == rs[h]);
+          if (!(in && finite)) keep &= ~(1u << i);
+        }
+      }
+      if (p.dropout) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+          const int r = row_base + rloc + 8 * h, c = tile * TILE + col;
+          if (!drop_keeps(p, b, DKDV ? c : r, DKDV ? r : c, hq)) kept &= ~(1u << i);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P = exp2(S·scale·log2e − lse·log2e) where kept, dS = P∘(dP∘drop −
+      // delta), each pair packed into the bf16 A fragments of the k step
+      // that covers its columns; one loop per (masked, dropout) case, so that
+      // neither is tested per element where it does not apply
+      uint32_t pf[4][4], df[4][4];  // P∘drop (dK/dV only) and dS
+      auto fragments = [&](auto masked, auto dropped) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int h = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * (lane % 4);  // columns col, col + 1
+          const float2 lse2 = DKDV ? lds_f2(sd.lse2 + col) : make_float2(rlse2[h], rlse2[h]);
+          const float2 delta = DKDV ? lds_f2(sd.delta + col) : make_float2(rdelta[h], rdelta[h]);
+          float ds[2], pd[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float pv = ex2(fmaf(s[i + e], p.scale_log2, -(e ? lse2.y : lse2.x)));
+            float dpe = dp[i + e];
+            if constexpr (decltype(masked)::value) pv = (keep >> (i + e)) & 1 ? pv : 0.f;
+            pd[e] = pv;
+            if constexpr (decltype(dropped)::value) {
+              const bool on = (kept >> (i + e)) & 1;
+              pd[e] = on ? __fmul_rn(pv, p.drop_scale) : 0.f;  // never contracted into the subtraction below
+              dpe = on ? __fmul_rn(dpe, p.drop_scale) : 0.f;
+            }
+            ds[e] = pv * (dpe - (e ? delta.y : delta.x));
+          }
+          df[i / 8][(i % 8) / 2] = pack_bf16(ds[0], ds[1]);
+          if constexpr (DKDV) pf[i / 8][(i % 8) / 2] = pack_bf16(pd[0], pd[1]);
+        }
+      };
+      if (p.dropout) {
+        if (fast) fragments(Flag<false>(), Flag<true>());
+        else fragments(Flag<true>(), Flag<true>());
+      } else {
+        if (fast) fragments(Flag<false>(), Flag<false>());
+        else fragments(Flag<true>(), Flag<false>());
+      }
+
+      // dV += (P∘drop)ᵀ dO and dK += dSᵀ Q, or dQ += dS K: A from registers, B
+      // the streamed tile read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (DKDV) {
+          wgmma_rs<D>(acc[0], pf[k], box_desc<true>(b1, k), first ? k : 1);
+          wgmma_rs<D>(acc[1], df[k], box_desc<true>(b0, k), first ? k : 1);
+        } else {
+          wgmma_rs<D>(acc[0], df[k], box_desc<true>(b0, k), first ? k : 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int a = 0; a < (DKDV ? 2 : 1); ++a) fence_regs(acc[a]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        fence_regs(df[k]);
+        if constexpr (DKDV) fence_regs(pf[k]);
+      }
+      if (lane == 0) mbar_arrive(empty(stage));
+      advance(stage, phase);
+    }
+
+  // rows rloc and rloc + 8 of this consumer; an item with no steps stores 0
+  const bool live = w.hi >= w.lo;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row_base + rloc + 8 * h;
+    if (r >= nrows) continue;
+    const size_t off = DKDV ? (((size_t)b * p.Sk + r) * p.Hkv + head) * D : (((size_t)b * p.S + r) * p.Hq + head) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4), i = 4 * j + 2 * h;
+      if constexpr (DKDV) {
+        *reinterpret_cast<uint32_t*>(p.dk + off + col) =
+            pack_bf16(live ? acc[1][i] * p.scale : 0.f, live ? acc[1][i + 1] * p.scale : 0.f);
+        *reinterpret_cast<uint32_t*>(p.dv + off + col) =
+            pack_bf16(live ? acc[0][i] : 0.f, live ? acc[0][i + 1] : 0.f);
+      } else {
+        *reinterpret_cast<uint32_t*>(p.dq + off + col) =
+            pack_bf16(live ? acc[0][i] * p.scale : 0.f, live ? acc[0][i + 1] * p.scale : 0.f);
+      }
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) splash_bwd_dq_kernel(Params p) {
-  constexpr int LDH = D + 8;   // bf16 q/k/v/dO tiles
-  constexpr int LDP = BK + 8;  // bf16 dS
-  constexpr int LDS = BK + 4;  // fp32 S and dP
-  constexpr int LDO = D + 4;   // fp32 dQ accumulator
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + BQ * LDH;
-  __nv_bfloat16* Ks = dOs + BQ * LDH;
-  __nv_bfloat16* Vs = Ks + BK * LDH;
-  __nv_bfloat16* dSs = Vs + BK * LDH;
-  float* Ss = reinterpret_cast<float*>(dSs + BQ * LDP);
-  float* dPs = Ss + BQ * LDS;
-  float* dQa = dPs + BQ * LDS;
-  int* kseg_s = reinterpret_cast<int*>(dQa + BQ * LDO);
-
-  const int qt = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
-  const int hk = hq / (p.Hq / p.Hkv);
-  const int q_start = qt * BQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  const size_t q_stride = (size_t)p.Hq * D;
-  const size_t q_off = ((size_t)b * p.S + q_start) * q_stride + (size_t)hq * D;
-  load_rows<D>(Qs, p.q + q_off, q_stride, p.S - q_start);
-  load_rows<D>(dOs, p.dout + q_off, q_stride, p.S - q_start);
-  for (int i = tid; i < BQ * LDO; i += NTHREADS) dQa[i] = 0.f;
-  __syncthreads();
-
-  // in the elementwise phase each lane pair owns one q row of this warp's 16
-  const int r_loc = warp * 16 + lane / 2;
-  const int half = lane & 1;
-  const int qi = q_start + r_loc;
-  const bool in = qi < p.S;
-  const size_t row_hs = ((size_t)b * p.Hq + hq) * p.S + qi;
-  const float lse2 = in ? p.lse[row_hs] * LOG2E : -INFINITY;
-  const float dlt = in ? p.delta[row_hs] : 0.f;
-  const int qseg = (p.use_seg && in) ? p.q_seg[(size_t)b * p.S + qi] : 0;
-  const uint32_t base = p.seed0 + ((uint32_t)b + p.batch0) * 0x632BE59Bu;
-
-  int kt_hi = p.nk - 1;
-  if (p.causal) kt_hi = min(kt_hi, (min(q_start + BQ, p.S) - 1) / BK);
-  const int kt_lo = p.kv_lo[(size_t)b * p.nq + qt];
-  const size_t kv_stride = (size_t)p.Hkv * D;
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k_start = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    const size_t kv_off = ((size_t)b * p.Sk + k_start) * kv_stride + (size_t)hk * D;
-    load_rows<D>(Ks, p.k + kv_off, kv_stride, p.Sk - k_start);
-    load_rows<D>(Vs, p.v + kv_off, kv_stride, p.Sk - k_start);
-    for (int i = tid; i < BK; i += NTHREADS) {
-      const int kj = k_start + i;
-      kseg_s[i] = (p.use_seg && kj < p.Sk) ? p.kv_seg[(size_t)b * p.Sk + kj] : 0;
-    }
-    __syncthreads();
-
-    // S = Q Kᵀ and dP = dO Vᵀ on this warp's 16 q rows
-    mm_abt<D>(Ss + warp * 16 * LDS, LDS, Qs + warp * 16 * LDH, LDH, Ks, LDH);
-    mm_abt<D>(dPs + warp * 16 * LDS, LDS, dOs + warp * 16 * LDH, LDH, Vs, LDH);
-    __syncwarp();
-
-    const float* srow = Ss + r_loc * LDS;
-    const float* dprow = dPs + r_loc * LDS;
-    __nv_bfloat16* dsrow = dSs + r_loc * LDP;
-    for (int c = half * (BK / 2); c < (half + 1) * (BK / 2); ++c) {
-      const int kj = k_start + c;
-      const bool ok = kj < p.Sk && (!p.causal || qi >= kj) && (!p.use_seg || qseg == kseg_s[c]) &&
-                      lse2 != -INFINITY;
-      const float pv = ok ? exp2f(srow[c] * p.scale_log2 - lse2) : 0.f;
-      float dp = dprow[c];
-      if (p.dropout) dp = dp * drop_factor(p, base, qi, kj, hq);
-      dsrow[c] = __float2bfloat16(pv * (dp - dlt));
-    }
-    __syncwarp();
-
-    // dQ += dS K on this warp's q rows
-    mm_acc_ab<D>(dQa + warp * 16 * LDO, LDO, dSs + warp * 16 * LDP, LDP, Ks, LDH);
-    __syncwarp();
-  }
-
-  if (in) {
-    const float* row = dQa + r_loc * LDO;
-    __nv_bfloat16* dst = p.dq + (((size_t)b * p.S + qi) * p.Hq + hq) * D;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) dst[c] = __float2bfloat16(row[c] * p.scale);
-  }
+__global__ void __launch_bounds__(THREADS, 1)
+    splash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap k, const __grid_constant__ CUtensorMap v,
+                           const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap dout, Params p) {
+  bwd_body<D, true>(k, v, q, dout, p);
 }
 
 template <int D>
-cudaError_t launch_dkdv(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = dkdv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(splash_bwd_dkdv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(THREADS, 1)
+    splash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap dout,
+                         const __grid_constant__ CUtensorMap k, const __grid_constant__ CUtensorMap v, Params p) {
+  bwd_body<D, false>(q, dout, k, v, p);
+}
+
+// ---------------------------------------------------------------- host side
+
+template <int D>
+cudaError_t launch(bool dkdv, const CUtensorMap (&maps)[4], const Params& p, int B, cudaStream_t stream) {
+  const void* fn = dkdv ? (const void*)splash_bwd_dkdv_kernel<D> : (const void*)splash_bwd_dq_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
   if (err != cudaSuccess) return err;
-  dim3 grid(p.nk, p.Hkv, B);
-  splash_bwd_dkdv_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  // dK/dV: k, v fixed, q, dO streamed; dQ: q, dO fixed, k, v streamed
+  CUtensorMap m0 = maps[dkdv ? 1 : 0], m1 = maps[dkdv ? 2 : 3], m2 = maps[dkdv ? 0 : 1], m3 = maps[dkdv ? 3 : 2];
+  Params pp = p;
+  void* args[5] = {&m0, &m1, &m2, &m3, &pp};
+  const dim3 grid(dkdv ? p.Hkv : p.Hq, dkdv ? (p.Sk + ITEM - 1) / ITEM : (p.S + ITEM - 1) / ITEM, B);
+  err = cudaLaunchKernel(fn, grid, dim3(THREADS), args, smem_bytes<D>(), stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(splash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(p.nq, p.Hq, B);
-  splash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+// maps: q, k, v, dout, each 4-D over (D, H, rows, B) with 64 x 1 x 64 x 1 boxes
+int run(bool dkdv, const void* q, const void* k, const void* v, const void* dout, const Params& p, int B, int D,
+        void* stream) {
+  if (B <= 0 || p.S <= 0 || p.Sk <= 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)p.Hq, (cuuint64_t)p.S, (cuuint64_t)B};
+  const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)p.Hkv, (cuuint64_t)p.Sk, (cuuint64_t)B};
+  const cuuint32_t box[4] = {64, 1, TILE, 1};
+  if (!encode(&maps[0], q, 4, q_dims, box) || !encode(&maps[1], k, 4, kv_dims, box) ||
+      !encode(&maps[2], v, 4, kv_dims, box) || !encode(&maps[3], dout, 4, q_dims, box))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D == 128 ? launch<128>(dkdv, maps, p, B, s) : launch<64>(dkdv, maps, p, B, s));
 }
 
-Params make_params(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                   const float* delta, const int* q_seg, const int* kv_seg, const int* kv_lo,
-                   const int* q_hi, void* dq, void* dk, void* dv, int S, int Sk, int Hq, int Hkv,
-                   float scale, float scale_log2, int causal, int use_seg, int dropout,
-                   unsigned int keep_thresh, float drop_scale, unsigned int seed0, unsigned int row0,
-                   unsigned int col0, unsigned int head0, unsigned int batch0) {
+Params make_params(const float* lse, const float* delta, const int* q_seg, const int* kv_seg, const int* kv_lo,
+                   const int* q_hi, void* dq, void* dk, void* dv, int S, int Sk, int Hq, int Hkv, float scale,
+                   float scale_log2, int causal, int use_seg, int dropout, unsigned int keep_thresh, float drop_scale,
+                   unsigned int seed0, unsigned int row0, unsigned int col0, unsigned int head0, unsigned int batch0) {
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.lse = lse;
   p.delta = delta;
   p.q_seg = q_seg;
   p.kv_seg = kv_seg;
   p.kv_lo = kv_lo;
   p.q_hi = q_hi;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dq = static_cast<bf16*>(dq);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
   p.S = S;
   p.Sk = Sk;
   p.Hq = Hq;
   p.Hkv = Hkv;
-  p.nq = (S + BQ - 1) / BQ;
-  p.nk = (Sk + BK - 1) / BK;
   p.scale = scale;
   p.scale_log2 = scale_log2;
   p.causal = causal;
@@ -438,7 +620,9 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // Plain C entry points (loaded with ctypes), one per kernel, with one
-// signature.  Each returns a cudaError_t; 0 is success.
+// signature.  Each returns a cudaError_t; 0 is success.  The wrapper
+// (ops/cuda/splash_attention.py) checks shapes: contiguous 16-byte aligned
+// bf16 operands, Hq a multiple of Hkv, D 64 or 128.
 #define SPLASH_BWD_ARGS                                                                              \
   const void *q, const void *k, const void *v, const void *dout, const float *lse,                   \
       const float *delta, const int *q_seg, const int *kv_seg, const int *kv_lo, const int *q_hi,    \
@@ -446,23 +630,14 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
       float scale_log2, int causal, int use_seg, int dropout, unsigned int keep_thresh,              \
       float drop_scale, unsigned int seed0, unsigned int row0, unsigned int col0, unsigned int head0, \
       unsigned int batch0, void *stream
-#define SPLASH_BWD_PARAMS                                                                         \
-  make_params(q, k, v, dout, lse, delta, q_seg, kv_seg, kv_lo, q_hi, dq, dk, dv, S, Sk, Hq, Hkv, \
-              scale, scale_log2, causal, use_seg, dropout, keep_thresh, drop_scale, seed0, row0,   \
-              col0, head0, batch0)
+#define SPLASH_BWD_PARAMS                                                                                     \
+  make_params(lse, delta, q_seg, kv_seg, kv_lo, q_hi, dq, dk, dv, S, Sk, Hq, Hkv, scale, scale_log2, causal, \
+              use_seg, dropout, keep_thresh, drop_scale, seed0, row0, col0, head0, batch0)
 
 extern "C" int splash_attention_bwd_dkdv_bf16(SPLASH_BWD_ARGS) {
-  const Params p = SPLASH_BWD_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return (int)launch_dkdv<128>(p, B, s);
-  if (D == 64) return (int)launch_dkdv<64>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  return run(true, q, k, v, dout, SPLASH_BWD_PARAMS, B, D, stream);
 }
 
 extern "C" int splash_attention_bwd_dq_bf16(SPLASH_BWD_ARGS) {
-  const Params p = SPLASH_BWD_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return (int)launch_dq<128>(p, B, s);
-  if (D == 64) return (int)launch_dq<64>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  return run(false, q, k, v, dout, SPLASH_BWD_PARAMS, B, D, stream);
 }

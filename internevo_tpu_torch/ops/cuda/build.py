@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source is compiled on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
 plain C interface, loaded with ``ctypes``.  The library's file name carries the
-hash of its source, so an edited source is rebuilt and an unchanged one is
-loaded from ``internevo_tpu_torch/build/``.  Nothing is built at import time.
+hash of its source and of the shared headers (``csrc/*.cuh``), so an edited
+source or header is rebuilt and an unchanged one is loaded from
+``internevo_tpu_torch/build/``.  Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -38,7 +39,10 @@ def find_nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # whichever the source includes
+        h.update(header.name.encode() + header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

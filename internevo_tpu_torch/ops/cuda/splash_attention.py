@@ -35,8 +35,13 @@ from .build import load
 LOG2E = 1.4426950408889634
 SOURCE = "splash_attention_fwd.cu"
 BWD_SOURCE = "splash_attention_bwd.cu"
-BLOCK_Q = 64   # the kernels' tile sizes: BQ and BK in the sources
+BLOCK_Q = 64   # the forward's tile sizes: BQ and BK in its source
 BLOCK_K = 64
+# the backward's (q, kv) block sizes: the dK/dV kernel's 128-row kv items
+# walk 64-row q tiles up to q_hi; the dQ kernel's 128-row q items walk 64-row
+# kv tiles from kv_lo (TILE and ITEM in its source)
+BWD_DKDV_BLOCKS = (64, 128)
+BWD_DQ_BLOCKS = (128, 64)
 # plain version: the largest (B, heads, S, Sk) score slab materialised at once
 _PLAIN_SLAB_ELEMS = 1 << 28
 
@@ -117,14 +122,10 @@ def dropout_mask_dense(rate: float, dropout_seed, B: int, H: int, S: int, Sk: in
 # ------------------------------------------------------------- control data
 
 
-def _segment_windows(seg: torch.Tensor, kv_seg: torch.Tensor, block_q: int, block_k: int):
-    """From segment RUN boundaries (runs are contiguous; ids need not be
-    monotonic): ``kv_lo`` (B, cdiv(S, block_q)), the first useful kv block of
-    each q block, and ``q_hi`` (B, cdiv(Sk, block_k)), the last useful q block
-    of each kv block -- the run end at the kv block's last token, which the
-    dK/dV loop stops at.  Self-attention only (S == Sk).  Where block_k does
-    not divide S, the last, partial kv block reads the run end at token S - 1;
-    elsewhere ``q_hi`` is the JAX function's."""
+def _segment_runs(seg: torch.Tensor, kv_seg: torch.Tensor):
+    """Segment RUN boundaries (runs are contiguous; ids need not be
+    monotonic): ``run_start`` (B, Sk), the first index of each kv token's run,
+    and ``run_end`` (B, S), the last index of each q token's run."""
     B, S = seg.shape
     Sk = kv_seg.shape[1]
     idx_k = torch.arange(Sk, device=kv_seg.device).expand(B, Sk)
@@ -136,10 +137,30 @@ def _segment_windows(seg: torch.Tensor, kv_seg: torch.Tensor, block_q: int, bloc
     change_n[:, :-1] = seg[:, 1:] != seg[:, :-1]
     ends = torch.where(change_n, idx_q, torch.full_like(idx_q, S - 1))
     run_end = torch.cummin(ends.flip(1), dim=1).values.flip(1)
-    last = (torch.arange(-(-Sk // block_k), device=seg.device) * block_k + block_k - 1).clamp_max(S - 1)
-    kv_lo = run_start[:, ::block_q] // block_k
-    q_hi = run_end[:, last] // block_q
-    return kv_lo.to(torch.int32), q_hi.to(torch.int32)
+    return run_start, run_end
+
+
+def _kv_lo(run_start: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
+    """(B, cdiv(S, block_q)): the first useful kv block of each q block."""
+    return (run_start[:, ::block_q] // block_k).to(torch.int32)
+
+
+def _q_hi(run_end: torch.Tensor, Sk: int, block_q: int, block_k: int) -> torch.Tensor:
+    """(B, cdiv(Sk, block_k)): the last useful q block of each kv block -- the
+    run end at the kv block's last token, which the dK/dV loop stops at.
+    Where block_k does not divide S, the last, partial kv block reads the run
+    end at token S - 1."""
+    S = run_end.shape[1]
+    last = (torch.arange(-(-Sk // block_k), device=run_end.device) * block_k + block_k - 1).clamp_max(S - 1)
+    return (run_end[:, last] // block_q).to(torch.int32)
+
+
+def _segment_windows(seg: torch.Tensor, kv_seg: torch.Tensor, block_q: int, block_k: int):
+    """``kv_lo`` (B, cdiv(S, block_q)) and ``q_hi`` (B, cdiv(Sk, block_k)) from
+    the segment runs.  Self-attention only (S == Sk); elsewhere than a ragged
+    last kv block, ``q_hi`` is the JAX function's."""
+    run_start, run_end = _segment_runs(seg, kv_seg)
+    return _kv_lo(run_start, block_q, block_k), _q_hi(run_end, kv_seg.shape[1], block_q, block_k)
 
 
 # ------------------------------------------------------------ plain version
@@ -275,22 +296,26 @@ def _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids):
             raise ValueError(f"{name} must be ({B}, {n}) on {q.device}: {tuple(t.shape)} on {t.device}")
 
 
-def _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv):
-    """int32 (q_seg, kv_seg, kv_lo, q_hi) on the device; windows are off
-    (kv_lo 0, q_hi the last q block) without segments or for cross kv."""
+def _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, lo_blocks=(BLOCK_Q, BLOCK_K),
+                  hi_blocks=(BLOCK_Q, BLOCK_K)):
+    """int32 (q_seg, kv_seg, kv_lo, q_hi) on the device: kv_lo at the (q, kv)
+    block sizes ``lo_blocks``, q_hi at ``hi_blocks``; windows are off (kv_lo
+    0, q_hi the last q block) without segments or for cross kv."""
     B, S = q.shape[:2]
     Sk = k.shape[1]
-    nq, nk = -(-S // BLOCK_Q), -(-Sk // BLOCK_K)
     if segment_ids is None:
         q_seg = kv_seg = torch.zeros(1, dtype=torch.int32, device=q.device)
     else:
         q_seg = segment_ids.to(torch.int32).contiguous()
         kv_seg = (segment_ids if kv_segment_ids is None else kv_segment_ids).to(torch.int32).contiguous()
     if segment_ids is not None and not cross_kv:
-        kv_lo, q_hi = (t.contiguous() for t in _segment_windows(q_seg, kv_seg, BLOCK_Q, BLOCK_K))
+        run_start, run_end = _segment_runs(q_seg, kv_seg)
+        kv_lo = _kv_lo(run_start, *lo_blocks).contiguous()
+        q_hi = _q_hi(run_end, Sk, *hi_blocks).contiguous()
     else:
-        kv_lo = torch.zeros(B, nq, dtype=torch.int32, device=q.device)
-        q_hi = torch.full((B, nk), nq - 1, dtype=torch.int32, device=q.device)
+        kv_lo = torch.zeros(B, -(-S // lo_blocks[0]), dtype=torch.int32, device=q.device)
+        q_hi = torch.full((B, -(-Sk // hi_blocks[1])), -(-S // hi_blocks[0]) - 1, dtype=torch.int32,
+                          device=q.device)
     return q_seg, kv_seg, kv_lo, q_hi
 
 
@@ -379,11 +404,14 @@ class BackwardCall:
                              f"{tuple(out.shape)} {out.dtype}, {tuple(do.shape)} {do.dtype}")
         if lse.shape != (B, Hq, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
             raise ValueError(f"lse must be contiguous ({B}, {Hq}, {S}) fp32: {tuple(lse.shape)} {lse.dtype}")
+        if lse.numel() >= 2**31:  # the kernels index (B, Hq, S) with 32-bit offsets
+            raise ValueError(f"B * Hq * S must be below 2**31: {B} * {Hq} * {S}")
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
         if dlse is not None:
             delta = delta - dlse.float()
         self.delta = delta.contiguous()
-        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv)
+        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, BWD_DQ_BLOCKS,
+                                  BWD_DKDV_BLOCKS)
         self.do = do
         self.dq, self.dk, self.dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         self.device = q.device

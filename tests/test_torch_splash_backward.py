@@ -126,14 +126,43 @@ def test_plain_backward_matches_jax_vjp():
     _close(tgrads, jgrads)
 
 
-@pytest.mark.parametrize("block", [32, 64])
+@pytest.mark.parametrize("block", [32, 64, tsplash.BWD_DKDV_BLOCKS, tsplash.BWD_DQ_BLOCKS])
 def test_q_hi_matches_segment_windows(block):
-    seg = _packed_segments(3, 512, 100, seed=5)
+    """Square blocks, and the backward kernels' (q, kv) blocks (64, 128) and
+    (128, 64) on a length 128 does not divide: there the JAX function's
+    strided slice has no entry for the ragged last kv block, which reads the
+    run end at token S - 1."""
+    block_q, block_k = (block, block) if isinstance(block, int) else block
+    S = 512 if isinstance(block, int) else 576
+    seg = _packed_segments(3, S, 100, seed=5)
     seg[1, 400:] = 0  # zero-padded tail
-    kv_lo, q_hi = tsplash._segment_windows(torch.from_numpy(seg), torch.from_numpy(seg), block, block)
-    ref_lo, ref_hi = jsplash._segment_windows(jnp.asarray(seg), jnp.asarray(seg), block, block)
+    kv_lo, q_hi = tsplash._segment_windows(torch.from_numpy(seg), torch.from_numpy(seg), block_q, block_k)
+    ref_lo, ref_hi = jsplash._segment_windows(jnp.asarray(seg), jnp.asarray(seg), block_q, block_k)
     np.testing.assert_array_equal(kv_lo.numpy(), np.asarray(ref_lo))
-    np.testing.assert_array_equal(q_hi.numpy(), np.asarray(ref_hi))
+    n = np.asarray(ref_hi).shape[1]
+    assert q_hi.shape == (3, -(-S // block_k))
+    np.testing.assert_array_equal(q_hi.numpy()[:, :n], np.asarray(ref_hi))
+    np.testing.assert_array_equal(q_hi.numpy()[:, n:], (S - 1) // block_q)
+
+
+@pytest.mark.parametrize("segments,cross", [(True, False), (True, True), (False, False)],
+                         ids=["windows", "cross_kv", "no_segments"])
+def test_backward_segment_args(segments, cross):
+    """The backward's control data: kv_lo at the dQ kernel's (128, 64)
+    blocks, q_hi at the dK/dV kernel's (64, 128); windows off (kv_lo 0, q_hi
+    the last 64-row q tile) without segments or for cross kv."""
+    B, S = 2, 333
+    seg = torch.from_numpy(_packed_segments(B, S, 90, seed=2))
+    q = k = torch.zeros(B, S, 1, 64)
+    _, _, kv_lo, q_hi = tsplash._segment_args(q, k, seg if segments else None, None, cross,
+                                              tsplash.BWD_DQ_BLOCKS, tsplash.BWD_DKDV_BLOCKS)
+    assert kv_lo.shape == (B, 3) and q_hi.shape == (B, 3)
+    assert kv_lo.dtype == q_hi.dtype == torch.int32
+    if segments and not cross:
+        torch.testing.assert_close(kv_lo, tsplash._segment_windows(seg, seg, 128, 64)[0].int())
+        torch.testing.assert_close(q_hi, tsplash._segment_windows(seg, seg, 64, 128)[1].int())
+    else:
+        assert (kv_lo == 0).all() and (q_hi == -(-S // 64) - 1).all()
 
 
 def test_q_hi_ragged_last_block():

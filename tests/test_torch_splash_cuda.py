@@ -81,22 +81,73 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         splash.splash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, seg)
 
 
-@pytest.mark.parametrize("S,Hq,Hkv,D,cross,drop,causal", [
-    (512, 4, 4, 128, False, 0.0, True),
-    (333, 4, 2, 128, False, 0.0, True),
-    (256, 4, 1, 64, False, 0.0, True),
-    (384, 2, 2, 128, True, 0.0, True),
-    (384, 4, 2, 64, False, 0.2, True),
-    (300, 2, 2, 128, False, 0.0, False),
+def _runs_across_tiles(B, S):
+    """Segment runs whose boundaries fall at many offsets inside the
+    backward's 64- and 128-row tiles (1, 2, 63, 64, 65, 127, ... rows in),
+    with runs long enough that most tile pairs need no mask: the kernels'
+    unmasked path meets the masked one at every boundary."""
+    lengths = (193, 257, 65, 130, 301, 2, 127, 448, 63, 191)
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        p, i = 0, b
+        while p < S:
+            n = lengths[i % len(lengths)]
+            seg[b, p:p + n], p, i = i + 1, p + n, i + 1
+    return seg
+
+
+def _chunk_scaled(t, scales):
+    """t with each 64-column chunk of its head dim scaled by its own factor."""
+    f = torch.tensor(scales, device=t.device).repeat_interleave(64)
+    return (t.float() * f).to(t.dtype)
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,D,cross,drop,causal,variant", [
+    (512, 4, 4, 128, False, 0.0, True, None),
+    (333, 4, 2, 128, False, 0.0, True, None),
+    (256, 4, 1, 64, False, 0.0, True, None),
+    (384, 2, 2, 128, True, 0.0, True, None),
+    (384, 4, 2, 64, False, 0.2, True, None),
+    (300, 2, 2, 128, False, 0.0, False, None),
+    # S no multiple of 128, and one 96 short of 4096 (its last kv item
+    # half empty, its last q tile ragged)
+    (4000, 2, 1, 128, False, 0.0, True, None),
+    (200, 2, 2, 64, False, 0.0, True, None),
+    # run boundaries at many offsets inside 64- and 128-row tiles
+    (2048, 4, 2, 128, False, 0.0, True, "runs"),
+    (1111, 4, 1, 64, False, 0.0, True, "runs"),
+    # GQA 4 at D = 64; dropout with GQA 4
+    (320, 8, 2, 64, False, 0.0, True, None),
+    (333, 8, 2, 128, False, 0.1, True, "runs"),
+    # each 64-column chunk of Q, dO and K its own scale: a swapped LBO / SBO
+    # of the MN-major descriptors or a wrong chunk of the K-major ones mixes
+    # the chunks
+    (512, 2, 2, 128, False, 0.0, True, "chunks"),
+    # inputs that are not symmetric in the tile: q and k grow along the
+    # sequence, dO along the head dim, so a permutation of P's or dS's
+    # columns in the register fragments moves the grads
+    (512, 2, 2, 128, False, 0.0, True, "ramp"),
+    (512, 4, 2, 64, False, 0.2, False, "ramp"),
 ])
-def test_backward_kernels_match_plain(dev, S, Hq, Hkv, D, cross, drop, causal):
+def test_backward_kernels_match_plain(dev, S, Hq, Hkv, D, cross, drop, causal, variant):
     """Through autograd (splash_attention_with_lse, dlse included): each
     backward kernel launches once, and dq/dk/dv match plain_backward."""
     q, k, v, seg = _inputs(dev, 2, S, Hq, Hkv, D, seed=1)
+    if variant == "runs":
+        seg = torch.from_numpy(_runs_across_tiles(2, S)).to(dev)
+    elif variant == "chunks":
+        q, k = _chunk_scaled(q, [1.0, 0.25]), _chunk_scaled(k, [0.5, 2.0])
+    elif variant == "ramp":
+        ramp = torch.linspace(0.2, 1.8, S, device=dev)[None, :, None, None]
+        q, k = (q.float() * ramp).to(torch.bfloat16), (k.float() * ramp.flip(1)).to(torch.bfloat16)
     kv_seg = torch.roll(seg, S // 3, dims=1) if cross else None
     seed = [5, 0, 0, 0, 0] if drop else None
     g = torch.Generator(device=dev).manual_seed(2)
     do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    if variant == "chunks":
+        do = _chunk_scaled(do, [3.0, 0.5])
+    elif variant == "ramp":
+        do = (do.float() * torch.linspace(0.1, 2.0, D, device=dev)).to(torch.bfloat16)
     dlse = torch.randn(2, Hq, S, generator=g, device=dev)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = (splash.launches_bwd_dkdv, splash.launches_bwd_dq)

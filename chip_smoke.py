@@ -12,10 +12,13 @@ the run with a non-zero exit:
                  (one nvcc per source, in parallel) and the Triton AdamW
                  kernel JIT-compiled, with registers and spills; a CUDA
                  source whose ``ptxas`` log shows a spill fails the run, and
-                 so does a splash-backward or gmm kernel whose SASS holds no
+                 so does a splash or gmm kernel whose SASS holds no
                  ``HGMMA`` (wgmma) or any ``HMMA`` (legacy mma.sync);
 3. kernel        the splash forward kernel against its plain version at the
-                 InternLM-7B scoring shapes, bf16 on the card, with timings;
+                 InternLM-7B scoring shapes, bf16 on the card, five cases and
+                 one planted fault the check must catch, with timings beside
+                 SDPA's forward and compiled ``flex_attention``'s forward
+                 with a (same segment ∧ causal) block mask;
 4. scoring       InternLM-7B (``configs/7B_sft.py``, full width and depth,
                  random weights from a seed) scores two packed rows of 4096
                  tokens through ``make_eval_step``; the kernel must launch once
@@ -294,15 +297,15 @@ def phase_build(dev):
     spilled, legacy = [], {}
     for src, log in zip(sources, logs):
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        # the splash backward and the grouped matmuls are wgmma kernels: each
-        # entry must issue HGMMA and no HMMA (the forward is still WMMA)
-        mma = sass_mma_counts(src) if src != splash.SOURCE else None
+        # the splash and grouped-matmul kernels are wgmma kernels: each entry
+        # must issue HGMMA and no HMMA
+        mma = sass_mma_counts(src)
         emit({"phase": "build", "source": f"internevo_tpu_torch/csrc/{src}", "seconds": cuda_s,
               "ptxas": ptxas, "sass_hgmma_hmma": mma})
         # a spill serialises the wgmma mainloop (ptxas C7514/C7518): refuse it
         if any(int(b) for ln in ptxas for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)):
             spilled.append(src)
-        legacy.update({k: v for k, v in (mma or {}).items() if not v[0] or v[1]})
+        legacy.update({k: v for k, v in mma.items() if not v[0] or v[1]})
     if spilled:
         raise AssertionError(f"ptxas spilled registers in {spilled}")
     if legacy:
@@ -320,7 +323,9 @@ def phase_build(dev):
 
 
 def phase_kernel(dev):
-    """Five cases at the scoring shapes; returns the kernels-line numbers."""
+    """Five cases at the scoring shapes; then a planted fault (every q item's
+    kv window one tile short) that the check must refuse; timings in the
+    packed MHA case.  Returns the kernels-line numbers."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.RandomState(SEED)
 
@@ -340,6 +345,10 @@ def phase_kernel(dev):
     }
     worst_out = worst_lse = 0.0
     timed = None
+
+    def outside(out, ref_out) -> int:
+        return int(((out.float() - ref_out.float()).abs() > OUT_ATOL + OUT_RTOL * ref_out.float().abs()).sum())
+
     for name, c in cases.items():
         q, k, v, seg = inputs(c["S"], c["hkv"])
         kv_seg = torch.roll(seg, c["S"] // 3, dims=1) if c.get("cross") else None
@@ -350,10 +359,9 @@ def phase_kernel(dev):
         empty = torch.isneginf(ref_lse)
         if not torch.equal(torch.isneginf(lse), empty):
             raise AssertionError(f"{name}: kernel and plain disagree on which rows are empty")
-        d_out = (out.float() - ref_out.float()).abs()
-        err_out = float(d_out.max())
+        err_out = float((out.float() - ref_out.float()).abs().max())
         err_lse = float((lse - ref_lse)[~empty].abs().max())
-        bad = int((d_out > OUT_ATOL + OUT_RTOL * ref_out.float().abs()).sum())
+        bad = outside(out, ref_out)
         emit({"phase": "kernel", "case": name, "shape_q": list(q.shape), "kv_heads": c["hkv"],
               "max_err_out": err_out, "max_err_lse": err_lse, "empty_rows": int(empty.sum()),
               "out_outside_bound": bad})
@@ -362,9 +370,19 @@ def phase_kernel(dev):
                                  f"(out {err_out}, {bad} outside bound; lse {err_lse})")
         worst_out, worst_lse = max(worst_out, err_out), max(worst_lse, err_lse)
         if name == "packed_mha":
-            timed = (q, k, v, seg)
+            timed, timed_want = (q, k, v, seg), ref_out
         del q, k, v, out, lse, ref_out, ref_lse
     q, k, v, seg = timed
+    planted = splash.ForwardCall(q, k, v, seg, None, q.shape[-1] ** -0.5, True, False, 0.0, None)
+    planted.segs[2].add_(1)  # kv_lo, in place: the kernel reads it through the same pointer
+    planted.launch()
+    torch.cuda.synchronize()
+    caught = outside(planted.out, timed_want)
+    emit({"phase": "kernel", "case": "planted fault: kv_lo + 1", "out_outside_bound": caught,
+          "max_err_out": float((planted.out.float() - timed_want.float()).abs().max())})
+    if not caught:
+        raise AssertionError("the forward check let a kv window one tile short through")
+    del planted
     call = splash.ForwardCall(q, k, v, seg, None, q.shape[-1] ** -0.5, True, False, 0.0, None)
     kernel_ms = cuda_time_ms(call.launch)
     wrapper_ms = cuda_time_ms(lambda: splash.splash_attention(q, k, v, seg, max_segment_len=MAX_SEG))
@@ -372,17 +390,48 @@ def phase_kernel(dev):
     (qt, kt, vt), mask = sdpa_inputs(q, k, v, seg)
     with torch.no_grad():
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-    del qt, kt, vt, mask
+    del mask
+    flex = flex_forward(qt.detach(), kt.detach(), vt.detach(), seg, timed_want)
+    del qt, kt, vt, timed_want
     flops = attention_flops(seg.cpu().numpy(), q.shape[2], q.shape[3])
     # q, k, v and the segment ids read once; out (like q) and lse (B, Hq, S) fp32 written once
     b = bound(flops, nbytes(q, k, v, seg) + nbytes(q) + 4 * q.shape[0] * q.shape[2] * q.shape[1])
     emit({"phase": "kernel", "case": "timing packed_mha", "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
           "plain_ms": plain_ms,
           "library_ms": library_ms, "library": "scaled_dot_product_attention, bool mask (B, 1, S, S)",
-          **b, "useful_tflop": flops / 1e12, "kernel_tflops": flops / kernel_ms / 1e9,
+          **flex, **b, "useful_tflop": flops / 1e12, "kernel_tflops": flops / kernel_ms / 1e9,
           "kernel_share_of_bf16_peak": flops / kernel_ms / 1e9 / device_peak_tflops()})
-    return {"max_err_out": worst_out, "max_err_lse": worst_lse, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **b}
+    return {"max_err_out": worst_out, "max_err_lse": worst_lse, "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_flex_ms": flex["library_flex_ms"], **b}
+
+
+def flex_forward(qt, kt, vt, seg, want) -> dict:
+    """The like-for-like yardstick of the splash forward: compiled
+    ``flex_attention`` with a (same segment ∧ causal) block mask, which skips
+    the masked blocks as the kernel does, forward only under ``no_grad``.
+    (B, H, S, D) inputs; its out is held loosely against ``want``, the plain
+    out, only to show it computes the same function.  The port never calls
+    it."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def same_run_causal(b, h, qi, ki):
+        return (qi >= ki) & (seg[b, qi] == seg[b, ki])
+
+    S = qt.shape[2]
+    t0 = time.perf_counter()
+    block_mask = create_block_mask(same_run_causal, seg.shape[0], None, S, S, device=qt.device)
+    flex = torch.compile(flex_attention)
+    with torch.no_grad():
+        o = flex(qt, kt, vt, block_mask=block_mask)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        rel = float((o.transpose(1, 2).float() - want.float()).norm() / want.float().norm())
+        del o
+        ms = cuda_time_ms(lambda: flex(qt, kt, vt, block_mask=block_mask))
+    if not rel <= 1e-2:
+        raise AssertionError(f"compiled flex_attention's out is {rel} (relative L2) from the plain out")
+    return {"library_flex_ms": ms, "library_flex": "torch.compile(flex_attention) forward, no_grad, block mask "
+            "(same segment ∧ causal)", "library_flex_compile_s": compile_s, "library_flex_rel_l2": rel}
 
 
 def plain_attention(q, k, v, segment_ids=None, softmax_scale=None, causal=True, **_):
@@ -1270,8 +1319,9 @@ def main() -> int:
         {"name": "splash_attention_fwd", "route": "cuda", "source": f"internevo_tpu_torch/csrc/{splash.SOURCE}",
          "replaces": "internevo_tpu/ops/pallas/splash_attention.py:558 (_fwd_kernel_bsd), :457 (_fwd_kernel)",
          "launches": launches, "launches_training": trained["fwd"], "max_abs_err": kernel["max_err_out"],
-         "max_err_lse": kernel["max_err_lse"], "ms": kernel["kernel_ms"], "plain_ms": kernel["plain_ms"],
-         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]},
+         "max_err_lse": kernel["max_err_lse"], "ms": kernel["kernel_ms"], "wrapper_ms": kernel["wrapper_ms"],
+         "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
+         "library_ms": kernel["library_ms"], "library_flex_ms": kernel["library_flex_ms"]},
         {"name": "splash_attention_bwd_dkdv", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,
          "launches": trained["dkdv"], **bwd["dkdv"], **bwd_common},
         {"name": "splash_attention_bwd_dq", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA loads and stores, wgmma shared-memory descriptors and the wgmma shapes
 // the kernels use, and the host-side tensor-map encoder.  Included by
-// gmm.cu and splash_attention_bwd.cu; each builds into its own library.
+// gmm.cu and the two splash-attention sources; each builds into its own
+// library.
 
 #pragma once
 
@@ -184,6 +185,18 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32),
         HOPPER_ACC8(d, 40), HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (64 x D) += A (64 x 16, registers) @ B (16 x D, shared memory, MN-major),
+// D 64 or 128: the attention kernels' products over a 64-row tile, such as
+// O += P V, with P packed from an m64n64 accumulator.
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  if constexpr (D == 128) {
+    wgmma_m64n128k16_rs<1>(d, a, db, scale_d);
+  } else {
+    wgmma_m64n64k16_rs<1>(d, a, db, scale_d);
+  }
 }
 
 // Four 8 x 8 bf16 matrices to shared memory: this thread holds (row lane / 4,

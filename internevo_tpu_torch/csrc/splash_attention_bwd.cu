@@ -84,6 +84,7 @@
 // else 0.
 
 #include "hopper.cuh"
+#include "splash.cuh"
 
 namespace {
 
@@ -133,62 +134,13 @@ constexpr int smem_bytes() {
 }
 static_assert(smem_bytes<128>() <= 232448, "the tiles fit a block's shared memory");
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// whether dropout keeps (batch b, q row qi, kv col kj, q head hq)
-__device__ __forceinline__ bool drop_keeps(const Params& p, int b, int qi, int kj, int hq) {
-  const uint32_t base = p.seed0 + ((uint32_t)b + p.batch0) * 0x632BE59Bu;
-  const uint32_t row = (uint32_t)qi + p.row0, col = (uint32_t)kj + p.col0, head = (uint32_t)hq + p.head0;
-  return fmix32(row * 0x9E3779B1u ^ col * 0x85EBCA77u ^ head * 0xC2B2AE3Du ^ base) >= p.keep_thresh;
-}
-
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
-
-// exp2, and the consumers' loads of per-column data, as volatile asm: they
-// stay in program order, so the compiler cannot hoist all 16 pairs of loads
-// ahead of the first exp2 (32 more live registers beside S, dP, dK and dV)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
+// the consumers' loads of per-column data as volatile asm, like ex2: they stay
+// in program order, so the compiler cannot hoist all 16 pairs of loads ahead
+// of the first exp2 (32 more live registers beside S, dP, dK and dV)
 __device__ __forceinline__ float2 lds_f2(const float* p) {
   float2 v;
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(smem_u32(p)));
   return v;
-}
-
-// True if v is true in every thread of consumer warpgroup cw (named barrier
-// 1 + cw; barrier 0 is __syncthreads).
-__device__ __forceinline__ bool warpgroup_all(bool v, int cw) {
-  uint32_t all;
-  asm volatile(
-      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\nbar.red.and.pred p, %2, 128, q;\nselp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(all)
-      : "r"((uint32_t)v), "r"(1 + cw)
-      : "memory");
-  return all != 0;
-}
-
-// d (64 x D) += A (64 x 16, registers) @ B (16 x D, shared memory, MN-major)
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  if constexpr (D == 128) {
-    wgmma_m64n128k16_rs<1>(d, a, db, scale_d);
-  } else {
-    wgmma_m64n64k16_rs<1>(d, a, db, scale_d);
-  }
 }
 
 // The item's walk over streamed tiles: `heads` passes (the q heads of a kv

@@ -5,258 +5,515 @@
 // ::_fwd_kernel (one kernel covers both: their split is TPU lane alignment).
 //
 // What bounds it on this card: at packed 7B shapes (head_dim 128, segments of
-// at most 2048 tokens) the two tile products are compute-bound, and the
-// tensor cores are the limit.  The (B, Hq, S, Sk) score tensor is what the
-// plain version pays for in device memory, so the design keeps every score in
-// shared memory: one block per (q tile, q head, batch) row, an online base-2
-// softmax in fp32 over the kv tiles from the segment-run start (kv_lo) up to
-// the causal diagonal, and bf16 tensor-core products (WMMA, 16x16x16,
-// fp32 accumulate).  Only q, k, v, the segment ids, out and lse touch device
-// memory.  This first kernel stages S and O through shared memory between the
-// two products; wgmma, TMA and warp specialisation are left for later work.
+// at most 2048 tokens) each visited pair of 64-row tiles does two products of
+// 64 x 64 x 128 against 32 KB of streamed K and V, so the tensor cores, and
+// the softmax between the two products, are the limit; the (B, Hq, S, Sk)
+// score tensor, which the plain version writes to device memory, never leaves
+// the registers.  The design is FlashAttention-3's forward, built from the
+// splash backward's parts (splash_attention_bwd.cu, hopper.cuh):
+//
+//   Items: (q head, 128-row q tile, batch), heads fastest (the heads of a
+//   tile run together), the q tiles with the longest causal walks first.
+//   One persistent block an SM, 384 threads in 3 warpgroups, takes items
+//   from a counter in device memory until none are left, so that the next
+//   item's Q and first tiles load while the current one computes.
+//
+//   Warpgroup 0, the producer.  Its warp 1 takes the next item (atomicAdd)
+//   and hands it to every role through a ring of two slots, then writes
+//   each of its tiles' segment data beside the tile: the tile's distinct
+//   segment ids, each with the 64-bit mask of the columns that carry it, and
+//   a flag (every column in range and of one segment).  Its thread 0 loads
+//   the item's Q by TMA once the consumers have taken the previous one into
+//   registers, then streams the (K, V) pairs of 64-row kv tiles from kv_lo
+//   (the segment-run start at the item's first row, from the wrapper) to the
+//   diagonal tile of the item's last row (to the last tile when not causal)
+//   by TMA (4-D maps over (D, H, S, B), 128-byte swizzle; rows past S read as
+//   zeros) into a ring of STAGES stages with full and empty mbarriers.
+//
+//   Warpgroups 1 and 2, the consumers, each own 64 of the item's q rows:
+//     Q as registers        bf16 A fragments, loaded once an item (ldmatrix)
+//     S = Q Kᵀ              wgmma m64n64k16, K K-major in shared memory
+//     softmax in registers  an online base-2 softmax: each thread holds two
+//                           rows of the m64n64 accumulator, their max and sum
+//                           reduced over the 4 threads of a quad by shuffles;
+//                           m, l and O's rescaling by exp2(m_old - m_new)
+//     O += (P∘drop) V       wgmma m64n(D)k16, A = P packed to bf16 register
+//                           fragments straight from the accumulator (its
+//                           layout is the A-fragment layout), B = the V tile
+//                           read MN-major
+//   O (64 fp32 a thread at D = 128) stays in registers for the whole item and
+//   is stored as bf16 rows at the end, with lse.  setmaxnreg gives the
+//   consumers 232 registers and the producer 40.
+//
+// A tile wholly below the consumer's diagonal, in range and inside the rows'
+// segment (the producer's flag and the consumer's own) skips the per-element
+// masks: the softmax is one of four loops specialised on (masked, dropout)
+// and chosen once a tile.  Elsewhere each row's valid columns are one 64-bit
+// mask, its segment's in the tile's table cut at the diagonal, taken while S
+// runs: per-element compares against the tile's segment ids took ~30% of the
+// kernel's time on an H100.  A kept element is the same expression in every loop, so the paths
+// give the same bits.  The first consumer's rows end a tile before the
+// second's: it waits on and releases the item's last tile without computing
+// on it, so that every stage is released by both and the producer's walk
+// stays the consumers'.
 //
 // Masking: causal (row >= col) ∧ seg_q == seg_kv ∧ col < Sk.  A row with no
-// valid key gives out 0 and lse -inf.  Lengths need not divide the tile: the
-// kernel zero-fills and masks its ragged edge.
+// valid key gives out 0 and lse -inf, chosen by select (its max stays -inf,
+// its probabilities are exp2(-inf) = 0, never exp2(-inf - -inf)).
 //
 // Dropout (rate > 0): keep iff fmix32(row*0x9E3779B1 ^ col*0x85EBCA77 ^
 // head*0xC2B2AE3D ^ base) >= thresh over GLOBAL (row, col, head) coordinates,
 // base = seed0 + (b + batch0) * 0x632BE59B, all uint32 -- bit-identical to
-// dropout_mask_dense.  Kept probabilities are scaled by 1/(1-rate) in the PV
-// product only; l and lse sum the undropped probabilities.
+// dropout_mask_dense (splash.cuh).  Kept probabilities are scaled by
+// 1/(1-rate) in the PV product only; l and lse sum the undropped
+// probabilities.  lse = m·ln2 + ln l, natural log, as the backward reads it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "hopper.cuh"
+#include "splash.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // q rows per block (16 per warp); BLOCK_Q in the wrapper
-constexpr int BK = 64;        // kv rows per tile; BLOCK_K in the wrapper
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+typedef __nv_bfloat16 bf16;
+
+constexpr int TILE = 64;      // kv rows of a streamed tile, q rows of a consumer; BLOCK_K in the wrapper
+constexpr int ITEM = 128;     // q rows of an item; BLOCK_Q in the wrapper
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
 constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
-  const __nv_bfloat16* q;     // (B, S, Hq, D)
-  const __nv_bfloat16* k;     // (B, Sk, Hkv, D)
-  const __nv_bfloat16* v;     // (B, Sk, Hkv, D)
-  const int* q_seg;           // (B, S)   (unused when use_seg == 0)
-  const int* kv_seg;          // (B, Sk)
-  const int* kv_lo;           // (B, nq)  first kv tile each q tile visits
-  __nv_bfloat16* out;         // (B, S, Hq, D)
-  float* lse;                 // (B, Hq, S)
-  int S, Sk, Hq, Hkv, nq, nk;
-  float scale_log2;           // softmax_scale * log2(e)
+  int* next_item;     // the persistent blocks' item counter, zeroed before each launch
+  const int* q_seg;   // (B, S)   (unused when use_seg == 0)
+  const int* kv_seg;  // (B, Sk)
+  const int* kv_lo;   // (B, cdiv(S, 128))  first 64-row kv tile each 128-row q item visits
+  bf16* out;          // (B, S, Hq, D)
+  float* lse;         // (B, Hq, S)
+  int B, S, Sk, Hq, Hkv;
+  float scale_log2;   // softmax_scale * log2(e)
   int causal, use_seg, dropout;
   uint32_t keep_thresh;
   float drop_scale;
   uint32_t seed0, row0, col0, head0, batch0;
 };
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
+// A streamed tile's segment data, written by the producer's warp 1: its
+// distinct segment ids, each with the 64-bit mask of the tile's in-range
+// columns that carry it (n of them, in the order of first appearance);
+// whether every column is in range and of one segment, and that segment.
+struct Side {
+  uint64_t mask[TILE];
+  int id[TILE];
+  int n, uniform, seg0, pad;
+};
+
+// shared memory: Q (128 rows), the ring of (K, V) tiles, their Side data,
+// the barriers (the ring's full and empty, Q's full and empty, the item
+// slots' full and empty) and the two item slots, after up to 1 KB of
+// alignment
+constexpr int BARRIERS = 2 * STAGES + 6;
+template <int D>
+constexpr int smem_bytes() {
+  return (2 + 2 * STAGES) * (D / 64) * BOX + STAGES * (int)sizeof(Side) + BARRIERS * 8 + 2 * 4 + 1024;
+}
+static_assert(smem_bytes<128>() <= 232448, "the tiles fit a block's shared memory");
+
+// an item: (q head, 128-row q tile, batch) of linear index L, heads fastest,
+// the q tiles with the longest causal walks first; its walk [lo, hi]
+struct Item {
+  int hq, item, b, lo, hi;
+};
+
+__device__ __forceinline__ Item decode(const Params& p, int L, int nq) {
+  Item it;
+  it.hq = L % p.Hq;
+  const int t = (L / p.Hq) % nq;
+  it.b = L / (p.Hq * nq);
+  it.item = p.causal ? nq - 1 - t : t;
+  it.lo = __ldg(p.kv_lo + (size_t)it.b * nq + it.item);
+  it.hi = (p.Sk - 1) / TILE;
+  if (p.causal) it.hi = min(it.hi, (min(it.item * ITEM + ITEM, p.S) - 1) / TILE);
+  return it;
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * (BQ * (D + 8) + 2 * BK * (D + 8) + BQ * (BK + 8)) +
-         sizeof(float) * (BQ * (BK + 4) + BQ * (D + 4)) + sizeof(int) * BK;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) splash_fwd_kernel(Params p) {
-  constexpr int LDH = D + 8;   // bf16 q/k/v tiles
-  constexpr int LDP = BK + 8;  // bf16 probabilities
-  constexpr int LDS = BK + 4;  // f32 scores
-  constexpr int LDO = D + 4;   // f32 output accumulator
-  constexpr int VEC = 8;       // bf16 per 16-byte load
-  constexpr int VPR = D / VEC;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * LDH;
-  __nv_bfloat16* Vs = Ks + BK * LDH;
-  __nv_bfloat16* Ps = Vs + BK * LDH;
-  float* Ss = reinterpret_cast<float*>(Ps + BQ * LDP);
-  float* Os = Ss + BQ * LDS;
-  int* kseg_s = reinterpret_cast<int*>(Os + BQ * LDO);
-
-  const int qt = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
-  const int hk = hq / (p.Hq / p.Hkv);
-  const int q_start = qt * BQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  for (int i = tid; i < BQ * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * VEC, qi = q_start + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (qi < p.S)
-      val = *reinterpret_cast<const uint4*>(p.q + (((size_t)b * p.S + qi) * p.Hq + hq) * D + c);
-    *reinterpret_cast<uint4*>(Qs + r * LDH + c) = val;
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
+  if (++stage == STAGES) {
+    stage = 0;
+    phase ^= 1;
   }
-  for (int i = tid; i < BQ * LDO; i += NTHREADS) Os[i] = 0.f;
+}
 
-  // each lane pair owns one row of this warp's 16: lane&1 picks the half
-  const int r_loc = warp * 16 + lane / 2;
-  const int half = lane & 1;
-  const int qi = q_start + r_loc;
-  const int qseg = (p.use_seg && qi < p.S) ? p.q_seg[(size_t)b * p.S + qi] : 0;
-  float m_run = -INFINITY, l_run = 0.f;
+// q, k, v: 4-D maps over (D, H, rows, B) with 64 x 1 x 64 x 1 boxes
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    splash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, Params p) {
+  constexpr int NB = D / 64;                 // 64-column boxes a row
+  constexpr uint32_t QBYTES = 2 * NB * BOX;  // the item's 128 q rows
+  constexpr uint32_t TBYTES = NB * BOX;      // one 64-row K or V tile
+  extern __shared__ __align__(1024) unsigned char fwd_smem[];
+  const uint32_t pad = (1024 - (smem_u32(fwd_smem) & 1023)) & 1023;
+  const uint32_t qtile = smem_u32(fwd_smem) + pad, ring = qtile + QBYTES;
+  Side* sides = reinterpret_cast<Side*>(fwd_smem + pad + QBYTES + STAGES * 2 * TBYTES);
+  const uint32_t bars = smem_u32(sides + STAGES);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t q_full = bars + 8 * 2 * STAGES, q_empty = q_full + 8;
+  auto sched_full = [&](int s) { return q_full + 16 + 8 * s; };
+  auto sched_empty = [&](int s) { return q_full + 32 + 8 * s; };
+  int* slots = reinterpret_cast<int*>(sides + STAGES) + 2 * BARRIERS;
+  const int nq = (p.S + ITEM - 1) / ITEM, n_items = p.Hq * nq * p.B;
+  const int group = p.Hq / p.Hkv;
 
-  int kt_hi = p.nk - 1;
-  if (p.causal) kt_hi = min(kt_hi, (min(q_start + BQ, p.S) - 1) / BK);
-  const int kt_lo = p.kv_lo[(size_t)b * p.nq + qt];
-  const uint32_t base = p.seed0 + ((uint32_t)b + p.batch0) * 0x632BE59Bu;
-  const uint32_t hrow = (uint32_t)qi + p.row0;
-  const uint32_t hhead = (uint32_t)hq + p.head0;
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k_start = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < BK * VPR; i += NTHREADS) {
-      const int r = i / VPR, c = (i % VPR) * VEC, kj = k_start + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (kj < p.Sk) {
-        const size_t off = (((size_t)b * p.Sk + kj) * p.Hkv + hk) * D + c;
-        kv = *reinterpret_cast<const uint4*>(p.k + off);
-        vv = *reinterpret_cast<const uint4*>(p.v + off);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LDH + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * LDH + c) = vv;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 2);                // the expect_tx, and lane 0 of warp 1
+      mbar_init(empty(s), CONSUMER_WARPS);  // one arrival from each consumer warp
     }
-    for (int i = tid; i < BK; i += NTHREADS) {
-      const int kj = k_start + i;
-      kseg_s[i] = (p.use_seg && kj < p.Sk) ? p.kv_seg[(size_t)b * p.Sk + kj] : 0;
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMER_WARPS);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(sched_full(s), 1);                    // warp 1's lane 0
+      mbar_init(sched_empty(s), 1 + CONSUMER_WARPS);  // thread 0 and each consumer warp
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T on this warp's 16 rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * LDH + kk, LDH);
-#pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-          wmma::load_matrix_sync(bf, Ks + j * 16 * LDH + kk, LDH);
-          wmma::mma_sync(acc[j], a, bf, acc[j]);
+  if (threadIdx.x < 128) {
+    // producer warpgroup: warp 1 takes the items and writes each tile's
+    // segment data (each lane columns lane and lane + 32, loaded before the
+    // wait for the stage); thread 0 loads Q and the tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    int stage = 0, ss = 0;
+    uint32_t phase = 0, sph = 0, qph = 0;
+    if (threadIdx.x == 0) {
+      for (;;) {
+        mbar_wait(sched_full(ss), sph);
+        const int L = slots[ss];
+        mbar_arrive(sched_empty(ss));
+        if (++ss == 2) ss = 0, sph ^= 1;
+        if (L >= n_items) break;
+        const Item it = decode(p, L, nq);
+        const int hk = it.hq / group;
+        mbar_wait(q_empty, qph ^ 1);
+        mbar_expect_tx(q_full, QBYTES);
+        qph ^= 1;
+        for (int c = 0; c < 2; ++c)  // two 64-row halves of NB boxes each
+          for (int j = 0; j < NB; ++j)
+            tma_load_4d(qtile + (c * NB + j) * BOX, &qmap, 64 * j, it.hq, it.item * ITEM + TILE * c, it.b, q_full);
+        for (int tile = it.lo; tile <= it.hi; ++tile) {
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect_tx(full(stage), 2 * TBYTES);
+          const uint32_t kt = ring + stage * 2 * TBYTES;
+          for (int j = 0; j < NB; ++j) {
+            tma_load_4d(kt + j * BOX, &kmap, 64 * j, hk, tile * TILE, it.b, full(stage));
+            tma_load_4d(kt + TBYTES + j * BOX, &vmap, 64 * j, hk, tile * TILE, it.b, full(stage));
+          }
+          advance(stage, phase);
         }
       }
+    } else if (warp == 1) {
+      for (;;) {
+        int L = 0;
+        if (lane == 0) {  // the next item, for every role
+          L = atomicAdd(p.next_item, 1);
+          mbar_wait(sched_empty(ss), sph ^ 1);
+          slots[ss] = L;
+          mbar_arrive(sched_full(ss));
+        }
+        L = __shfl_sync(0xffffffffu, L, 0);
+        if (++ss == 2) ss = 0, sph ^= 1;
+        if (L >= n_items) break;
+        const Item it = decode(p, L, nq);
+        const int* seg_src = p.kv_seg + (size_t)it.b * p.Sk;
+        for (int tile = it.lo; tile <= it.hi; ++tile) {
+          int seg[2];
+          bool in[2];
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-        wmma::store_matrix_sync(Ss + warp * 16 * LDS + j * 16, acc[j], LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax, base 2, on row r_loc
-    float* srow = Ss + r_loc * LDS;
-    const int c0 = half * (BK / 2);
-    float mx = -INFINITY;
-    for (int c = c0; c < c0 + BK / 2; ++c) {
-      const int kj = k_start + c;
-      const bool ok = kj < p.Sk && (!p.causal || qi >= kj) && (!p.use_seg || qseg == kseg_s[c]);
-      const float s = ok ? srow[c] * p.scale_log2 : -INFINITY;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const bool empty = m_new == -INFINITY;  // no valid key in this row yet
-    const float corr = empty ? 1.f : exp2f(m_run - m_new);
-    float sum = 0.f;
-    __nv_bfloat16* prow = Ps + r_loc * LDP;
-    for (int c = c0; c < c0 + BK / 2; ++c) {
-      float pv = empty ? 0.f : exp2f(srow[c] - m_new);
-      sum += pv;
-      if (p.dropout) {
-        const uint32_t col = (uint32_t)(k_start + c) + p.col0;
-        const uint32_t h = fmix32(hrow * 0x9E3779B1u ^ col * 0x85EBCA77u ^ hhead * 0xC2B2AE3Du ^ base);
-        pv = h >= p.keep_thresh ? pv * p.drop_scale : 0.f;
+          for (int h = 0; h < 2; ++h) {
+            const int c = tile * TILE + lane + 32 * h;
+            in[h] = c < p.Sk;
+            seg[h] = (p.use_seg && in[h]) ? __ldg(seg_src + c) : 0;
+          }
+          const int seg0 = __shfl_sync(0xffffffffu, seg[0], 0);
+          const bool uniform = __all_sync(0xffffffffu, in[0] && in[1] && seg[0] == seg0 && seg[1] == seg0);
+          mbar_wait(empty(stage), phase ^ 1);
+          Side& sd = sides[stage];
+          // the table of distinct ids: the id of the first column not yet
+          // covered, and the ballot of the columns that carry it
+          uint64_t left = __ballot_sync(0xffffffffu, in[0]) | (uint64_t)__ballot_sync(0xffffffffu, in[1]) << 32;
+          int n = 0;
+          while (left) {
+            const int c = __ffsll((long long)left) - 1;
+            const int id = __shfl_sync(0xffffffffu, c < 32 ? seg[0] : seg[1], c & 31);
+            const uint64_t mask = __ballot_sync(0xffffffffu, in[0] && seg[0] == id) |
+                                  (uint64_t)__ballot_sync(0xffffffffu, in[1] && seg[1] == id) << 32;
+            if (lane == 0) {
+              sd.mask[n] = mask;
+              sd.id[n] = id;
+            }
+            ++n;
+            left &= ~mask;
+          }
+          if (lane == 0) {
+            sd.n = n;
+            sd.uniform = uniform;
+            sd.seg0 = seg0;
+            mbar_arrive(full(stage));  // releases lane 0's writes
+          }
+          advance(stage, phase);
+        }
       }
-      prow[c] = __float2bfloat16(pv);
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * corr + sum;
-    m_run = m_new;
-    float* orow = Os + r_loc * LDO;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) orow[c] *= corr;
-    __syncwarp();
-
-    // O += P V on this warp's 16 rows
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, Os + warp * 16 * LDO + j * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * LDP + kk, LDP);
-        wmma::load_matrix_sync(bf, Vs + kk * LDH + j * 16, LDH);
-        wmma::mma_sync(o, a, bf, o);
-      }
-      wmma::store_matrix_sync(Os + warp * 16 * LDO + j * 16, o, LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    return;
   }
 
-  if (qi < p.S) {
-    const float inv = l_run == 0.f ? 0.f : 1.f / l_run;
-    const float* orow = Os + r_loc * LDO;
-    __nv_bfloat16* dst = p.out + (((size_t)b * p.S + qi) * p.Hq + hq) * D;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) dst[c] = __float2bfloat16(orow[c] * inv);
-    if (half == 0)
-      p.lse[((size_t)b * p.Hq + hq) * p.S + qi] = l_run == 0.f ? -INFINITY : m_run * LN2 + logf(l_run);
+  // consumers: q rows [64 cw, 64 cw + 64) of the item
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int rloc = 16 * warp + lane / 4;  // accumulator rows rloc, rloc + 8
+  int stage = 0, ss = 0;
+  uint32_t phase = 0, sph = 0, qph = 0;
+  for (;;) {
+    mbar_wait(sched_full(ss), sph);
+    const int L = slots[ss];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sched_empty(ss));
+    if (++ss == 2) ss = 0, sph ^= 1;
+    if (L >= n_items) break;
+    const Item it = decode(p, L, nq);
+    const int hq = it.hq, item = it.item, b = it.b, lo = it.lo, hi = it.hi;
+    const int row_base = item * ITEM + TILE * cw;  // first row of this consumer
+    // the last tile this consumer computes on: its own rows' diagonal; none if
+    // every row lies past S.  It only releases the item's tiles after it
+    const int my_hi = row_base >= p.S ? lo - 1 : p.causal ? min(hi, (min(row_base + TILE, p.S) - 1) / TILE) : hi;
+
+    // this thread's rows' segment ids; rows_uniform: every row of the 64 in
+    // range and of one segment (the warpgroup's threads hold two rows each)
+    const int* qseg = p.q_seg + (size_t)b * p.S;
+    const int seg_first = (p.use_seg && row_base < p.S) ? __ldg(qseg + row_base) : 0;
+    int rs[2];
+    bool own_uniform = true;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row_base + rloc + 8 * h;
+      rs[h] = (p.use_seg && r < p.S) ? __ldg(qseg + r) : 0;
+      own_uniform = own_uniform && r < p.S && rs[h] == seg_first;
+    }
+    const bool rows_uniform = warpgroup_all(own_uniform, cw);
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max of s·scale·log2e, per row
+    float l[2] = {0.f, 0.f};              // this thread's share of the running sum, per row
+    const uint32_t qa = qtile + cw * NB * BOX;
+    mbar_wait(q_full, qph);
+    qph ^= 1;
+    // this consumer's Q rows as bf16 A fragments, loaded once (ldmatrix), as
+    // the backward's dQ kernel loads Q and dO
+    uint32_t qf[D / 16][4];
+    {
+      const int row = 16 * warp + lane % 8 + 8 * ((lane / 8) & 1);
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        const int chunk = 2 * k + lane / 16;
+        ldmatrix_x4(qa + (chunk / 8) * BOX + row * 128 + (((chunk % 8) ^ (row % 8)) << 4), qf[k]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty);  // Q is in registers: the next item's may load
+
+    for (int tile = lo; tile <= my_hi; ++tile) {
+      const uint32_t kt = ring + stage * 2 * TBYTES, vt = kt + TBYTES;
+      mbar_wait(full(stage), phase);
+      const Side& sd = sides[stage];
+
+      // S = Q Kᵀ
+      float s[32];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k)
+        wgmma_m64n64k16_rs<0>(s, qf[k], box_desc<false>(kt, k), k);
+      wgmma_commit();
+
+      // While it runs: which of this thread's 32 elements are valid and, with
+      // dropout, not dropped (bit i of kept).  Accumulator (row, col) of
+      // register i: row rloc + 8 h, h = (i >> 1) & 1, col 8 (i >> 2) + 2 (lane %
+      // 4) + (i & 1).  A tile wholly below the diagonal, in range and in the
+      // rows' one segment keeps every element; elsewhere row h's valid columns
+      // are the table's mask of its segment, cut at the diagonal, shifted so
+      // that element i is bit 8 (i >> 2) + (i & 1) of keep[h].
+      const bool fast = rows_uniform && sd.uniform && (!p.causal || row_base > tile * TILE) &&
+                        (!p.use_seg || sd.seg0 == seg_first);
+      uint64_t keep[2] = {~0ull, ~0ull};
+      uint32_t kept = ~0u;
+      if (!fast) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row_base + rloc + 8 * h;
+          uint64_t mk = 0;
+          for (int e = 0; e < sd.n; ++e) mk = sd.id[e] == rs[h] ? sd.mask[e] : mk;
+          if (p.causal) {
+            const int d = r - tile * TILE;  // the last valid column
+            mk = d >= TILE - 1 ? mk : d < 0 ? 0 : mk & ((2ull << d) - 1);
+          }
+          keep[h] = r < p.S ? mk >> (2 * (lane % 4)) : 0;
+        }
+      }
+      if (p.dropout) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+          if (!drop_keeps(p, b, row_base + rloc + 8 * ((i >> 1) & 1), tile * TILE + col, hq)) kept &= ~(1u << i);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // the online softmax on this thread's two rows, P∘drop packed into the
+      // bf16 A fragments of the k step that covers its columns, O rescaled; one
+      // loop per (masked, dropout) case
+      uint32_t pf[4][4];
+      auto softmax = [&](auto masked, auto dropped) {
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          if constexpr (decltype(masked)::value) s[i] = (keep[h] >> (8 * (i >> 2) + (i & 1))) & 1 ? s[i] : -INFINITY;
+          mx[h] = fmaxf(mx[h], s[i]);
+        }
+        float mu[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m[h], mx[h] * p.scale_log2);
+          mu[h] = m_new == -INFINITY ? 0.f : m_new;  // a row with no valid key yet: p, o and l stay 0
+          corr[h] = ex2(m[h] - mu[h]);
+          m[h] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int h = (i >> 1) & 1;
+          float pd[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pv = ex2(fmaf(s[i + e], p.scale_log2, -mu[h]));
+            sum[h] += pv;
+            pd[e] = pv;
+            if constexpr (decltype(dropped)::value) pd[e] = (kept >> (i + e)) & 1 ? __fmul_rn(pv, p.drop_scale) : 0.f;
+          }
+          pf[i / 8][(i % 8) / 2] = pack_bf16(pd[0], pd[1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      };
+      if (p.dropout) {
+        if (fast) softmax(Flag<false>(), Flag<true>());
+        else softmax(Flag<true>(), Flag<true>());
+      } else {
+        if (fast) softmax(Flag<false>(), Flag<false>());
+        else softmax(Flag<true>(), Flag<false>());
+      }
+
+      // O += (P∘drop) V
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_rs<D>(o, pf[k], box_desc<true>(vt, k), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) fence_regs(pf[k]);
+      if (lane == 0) mbar_arrive(empty(stage));
+      advance(stage, phase);
+    }
+    // the item's tiles past this consumer's rows: released unread
+    for (int tile = max(lo, my_hi + 1); tile <= hi; ++tile) {
+      mbar_wait(full(stage), phase);
+      if (lane == 0) mbar_arrive(empty(stage));
+      advance(stage, phase);
+    }
+
+    // rows rloc and rloc + 8 of this consumer: out = O / l (0 where l = 0),
+    // lse = m·ln2 + ln l (-inf where l = 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int r = row_base + rloc + 8 * h;
+      if (r >= p.S) continue;
+      const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
+      bf16* dst = p.out + (((size_t)b * p.S + r) * p.Hq + hq) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4), i = 4 * j + 2 * h;
+        *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(o[i] * inv, o[i + 1] * inv);
+      }
+      if (lane % 4 == 0)
+        p.lse[((size_t)b * p.Hq + hq) * p.S + r] = l[h] == 0.f ? -INFINITY : m[h] * LN2 + logf(l[h]);
+    }
   }
 }
 
+// ---------------------------------------------------------------- host side
+
 template <int D>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(splash_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch(const CUtensorMap (&maps)[3], const Params& p, int B, cudaStream_t stream) {
+  const void* fn = (const void*)splash_fwd_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
   if (err != cudaSuccess) return err;
-  dim3 grid(p.nq, p.Hq, B);
-  splash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  CUtensorMap q = maps[0], k = maps[1], v = maps[2];
+  Params pp = p;
+  void* args[4] = {&q, &k, &v, &pp};
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaMemsetAsync(p.next_item, 0, sizeof(int), stream)) != cudaSuccess)
+    return err;
+  const int n_items = p.Hq * ((p.S + ITEM - 1) / ITEM) * B;
+  const dim3 grid(min(n_items, sms));
+  err = cudaLaunchKernel(fn, grid, dim3(THREADS), args, smem_bytes<D>(), stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Returns a cudaError_t; 0 is success.
+// Plain C entry point (loaded with ctypes).  Returns a cudaError_t; 0 is
+// success.  The wrapper (ops/cuda/splash_attention.py) checks shapes:
+// contiguous 16-byte aligned bf16 operands, Hq a multiple of Hkv, D 64 or 128.
 extern "C" int splash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, const int* q_seg, const int* kv_seg,
-    const int* kv_lo, void* out, float* lse, int B, int S, int Sk, int Hq, int Hkv, int D,
+    const int* kv_lo, void* out, float* lse, int* next_item, int B, int S, int Sk, int Hq, int Hkv, int D,
     float scale_log2, int causal, int use_seg, int dropout, unsigned int keep_thresh,
     float drop_scale, unsigned int seed0, unsigned int row0, unsigned int col0,
     unsigned int head0, unsigned int batch0, void* stream) {
+  if (B <= 0 || S <= 0 || Sk <= 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)Hq, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)Sk, (cuuint64_t)B};
+  const cuuint32_t box[4] = {64, 1, TILE, 1};
+  if (!encode(&maps[0], q, 4, q_dims, box) || !encode(&maps[1], k, 4, kv_dims, box) ||
+      !encode(&maps[2], v, 4, kv_dims, box))
+    return (int)cudaErrorInvalidValue;
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.next_item = next_item;
   p.q_seg = q_seg;
   p.kv_seg = kv_seg;
   p.kv_lo = kv_lo;
-  p.out = static_cast<__nv_bfloat16*>(out);
+  p.out = static_cast<bf16*>(out);
   p.lse = lse;
+  p.B = B;
   p.S = S;
   p.Sk = Sk;
   p.Hq = Hq;
   p.Hkv = Hkv;
-  p.nq = (S + BQ - 1) / BQ;
-  p.nk = (Sk + BK - 1) / BK;
   p.scale_log2 = scale_log2;
   p.causal = causal;
   p.use_seg = use_seg;
@@ -269,7 +526,5 @@ extern "C" int splash_attention_fwd_bf16(
   p.head0 = head0;
   p.batch0 = batch0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return (int)launch<128>(p, B, s);
-  if (D == 64) return (int)launch<64>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)(D == 128 ? launch<128>(maps, p, B, s) : launch<64>(maps, p, B, s));
 }

@@ -35,7 +35,9 @@ from .build import load
 LOG2E = 1.4426950408889634
 SOURCE = "splash_attention_fwd.cu"
 BWD_SOURCE = "splash_attention_bwd.cu"
-BLOCK_Q = 64   # the forward's tile sizes: BQ and BK in its source
+# the forward's (q, kv) block sizes: its 128-row q items walk 64-row kv
+# tiles from kv_lo (ITEM and TILE in its source)
+BLOCK_Q = 128
 BLOCK_K = 64
 # the backward's (q, kv) block sizes: the dK/dV kernel's 128-row kv items
 # walk 64-row q tiles up to q_hi; the dQ kernel's 128-row q items walk 64-row
@@ -122,22 +124,24 @@ def dropout_mask_dense(rate: float, dropout_seed, B: int, H: int, S: int, Sk: in
 # ------------------------------------------------------------- control data
 
 
-def _segment_runs(seg: torch.Tensor, kv_seg: torch.Tensor):
-    """Segment RUN boundaries (runs are contiguous; ids need not be
-    monotonic): ``run_start`` (B, Sk), the first index of each kv token's run,
-    and ``run_end`` (B, S), the last index of each q token's run."""
-    B, S = seg.shape
-    Sk = kv_seg.shape[1]
+def _run_start(kv_seg: torch.Tensor) -> torch.Tensor:
+    """(B, Sk): the first index of each kv token's segment RUN (runs are
+    contiguous; ids need not be monotonic)."""
+    B, Sk = kv_seg.shape
     idx_k = torch.arange(Sk, device=kv_seg.device).expand(B, Sk)
     change = torch.ones_like(kv_seg, dtype=torch.bool)
     change[:, 1:] = kv_seg[:, 1:] != kv_seg[:, :-1]
-    run_start = torch.cummax(torch.where(change, idx_k, torch.zeros_like(idx_k)), dim=1).values
+    return torch.cummax(torch.where(change, idx_k, torch.zeros_like(idx_k)), dim=1).values
+
+
+def _run_end(seg: torch.Tensor) -> torch.Tensor:
+    """(B, S): the last index of each q token's segment run."""
+    B, S = seg.shape
     idx_q = torch.arange(S, device=seg.device).expand(B, S)
     change_n = torch.ones_like(seg, dtype=torch.bool)
     change_n[:, :-1] = seg[:, 1:] != seg[:, :-1]
     ends = torch.where(change_n, idx_q, torch.full_like(idx_q, S - 1))
-    run_end = torch.cummin(ends.flip(1), dim=1).values.flip(1)
-    return run_start, run_end
+    return torch.cummin(ends.flip(1), dim=1).values.flip(1)
 
 
 def _kv_lo(run_start: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
@@ -159,8 +163,7 @@ def _segment_windows(seg: torch.Tensor, kv_seg: torch.Tensor, block_q: int, bloc
     """``kv_lo`` (B, cdiv(S, block_q)) and ``q_hi`` (B, cdiv(Sk, block_k)) from
     the segment runs.  Self-attention only (S == Sk); elsewhere than a ragged
     last kv block, ``q_hi`` is the JAX function's."""
-    run_start, run_end = _segment_runs(seg, kv_seg)
-    return _kv_lo(run_start, block_q, block_k), _q_hi(run_end, kv_seg.shape[1], block_q, block_k)
+    return _kv_lo(_run_start(kv_seg), block_q, block_k), _q_hi(_run_end(seg), kv_seg.shape[1], block_q, block_k)
 
 
 # ------------------------------------------------------------ plain version
@@ -296,11 +299,11 @@ def _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids):
             raise ValueError(f"{name} must be ({B}, {n}) on {q.device}: {tuple(t.shape)} on {t.device}")
 
 
-def _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, lo_blocks=(BLOCK_Q, BLOCK_K),
-                  hi_blocks=(BLOCK_Q, BLOCK_K)):
-    """int32 (q_seg, kv_seg, kv_lo, q_hi) on the device: kv_lo at the (q, kv)
-    block sizes ``lo_blocks``, q_hi at ``hi_blocks``; windows are off (kv_lo
-    0, q_hi the last q block) without segments or for cross kv."""
+def _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, lo_blocks, hi_blocks=None):
+    """int32 (q_seg, kv_seg, kv_lo[, q_hi]) on the device: kv_lo at the (q, kv)
+    block sizes ``lo_blocks``, q_hi at ``hi_blocks`` (left out when None);
+    windows are off (kv_lo 0, q_hi the last q block) without segments or for
+    cross kv."""
     B, S = q.shape[:2]
     Sk = k.shape[1]
     if segment_ids is None:
@@ -308,15 +311,17 @@ def _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, lo_blocks=(BLOCK_
     else:
         q_seg = segment_ids.to(torch.int32).contiguous()
         kv_seg = (segment_ids if kv_segment_ids is None else kv_segment_ids).to(torch.int32).contiguous()
-    if segment_ids is not None and not cross_kv:
-        run_start, run_end = _segment_runs(q_seg, kv_seg)
-        kv_lo = _kv_lo(run_start, *lo_blocks).contiguous()
-        q_hi = _q_hi(run_end, Sk, *hi_blocks).contiguous()
-    else:
+    if segment_ids is None or cross_kv:
         kv_lo = torch.zeros(B, -(-S // lo_blocks[0]), dtype=torch.int32, device=q.device)
-        q_hi = torch.full((B, -(-Sk // hi_blocks[1])), -(-S // hi_blocks[0]) - 1, dtype=torch.int32,
-                          device=q.device)
-    return q_seg, kv_seg, kv_lo, q_hi
+        if hi_blocks is None:
+            return q_seg, kv_seg, kv_lo
+        return q_seg, kv_seg, kv_lo, torch.full((B, -(-Sk // hi_blocks[1])), -(-S // hi_blocks[0]) - 1,
+                                                dtype=torch.int32, device=q.device)
+    kv_lo = _kv_lo(_run_start(kv_seg), *lo_blocks).contiguous()
+    if hi_blocks is None:
+        return q_seg, kv_seg, kv_lo
+    return q_seg, kv_seg, kv_lo, _q_hi(_run_end(q_seg), Sk, *hi_blocks).contiguous()
+
 
 
 def _dropout_args(dropout_rate, dropout_seed):
@@ -331,7 +336,7 @@ def _kernel_fn():
     fn = load(SOURCE).splash_attention_fwd_bf16
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
                        + [ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_float]
                        + [ctypes.c_uint] * 5 + [ctypes.c_void_p])
     return fn
@@ -351,7 +356,8 @@ def _bwd_fn(name: str):
 
 class ForwardCall:
     """The prepared operands of one forward (control data, outputs, the
-    argument list); ``launch`` launches the kernel on them."""
+    persistent blocks' item counter, the argument list); ``launch`` launches
+    the kernel on them (the kernel zeroes the counter first)."""
 
     def __init__(self, q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv, dropout_rate,
                  dropout_seed):
@@ -359,11 +365,13 @@ class ForwardCall:
         load(SOURCE)  # built before any work: a machine without the toolkit fails here
         B, S, Hq, D = q.shape
         Sk, Hkv = k.shape[1], k.shape[2]
-        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv)[:3]
+        # its control data: kv_lo alone, at the forward's blocks
+        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, (BLOCK_Q, BLOCK_K))
         self.out = torch.empty_like(q)
         self.lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
+        self.next_item = torch.empty(1, dtype=torch.int32, device=q.device)
         self.device = q.device
-        self.args = ([t.data_ptr() for t in (q, k, v, *self.segs, self.out, self.lse)]
+        self.args = ([t.data_ptr() for t in (q, k, v, *self.segs, self.out, self.lse, self.next_item)]
                      + [B, S, Sk, Hq, Hkv, D, float(scale * LOG2E), int(causal), int(segment_ids is not None),
                         *_dropout_args(dropout_rate, dropout_seed)])
         self.inputs = (q, k, v)  # kept alive while the kernel may read them

@@ -96,13 +96,45 @@ def test_nonmonotonic_pad_ids():
         np.asarray(jsplash._segment_windows(jnp.asarray(seg), jnp.asarray(seg), BLOCK, BLOCK)[0]))
 
 
-@pytest.mark.parametrize("block", [32, 64])
-def test_kv_lo_matches_segment_windows(block):
-    seg = _packed_segments(3, 512, 100, seed=5)
+@pytest.mark.parametrize("block_q,block_k,S", [
+    pytest.param(32, 32, 512, id="32"),
+    pytest.param(64, 64, 512, id="64"),
+    # the forward kernel's blocks, the last q block ragged (500 = 3 * 128 + 116)
+    pytest.param(tsplash.BLOCK_Q, tsplash.BLOCK_K, 500, id="forward"),
+])
+def test_kv_lo_matches_segment_windows(block_q, block_k, S):
+    seg = _packed_segments(3, S, 100, seed=5)
     seg[1, 400:] = 0  # zero-padded tail
-    kv_lo = tsplash._segment_windows(torch.from_numpy(seg), torch.from_numpy(seg), block, block)[0]
-    ref = jsplash._segment_windows(jnp.asarray(seg), jnp.asarray(seg), block, block)[0]
+    kv_lo = tsplash._segment_windows(torch.from_numpy(seg), torch.from_numpy(seg), block_q, block_k)[0]
+    ref = jsplash._segment_windows(jnp.asarray(seg), jnp.asarray(seg), block_q, block_k)[0]
+    assert kv_lo.shape == (3, -(-S // block_q))
     np.testing.assert_array_equal(kv_lo.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("segments,cross", [(True, False), (True, True), (False, False)],
+                         ids=["windows", "cross_kv", "no_segments"])
+def test_forward_call_control_is_kv_lo(monkeypatch, segments, cross):
+    """The forward kernel's control data is (q_seg, kv_seg, kv_lo) alone, kv_lo
+    at its (128, 64) blocks as the JAX function computes it; windows off (kv_lo
+    0) without segments or for cross kv.  Built by ``ForwardCall`` on CPU
+    tensors, with the library's loader stubbed: nothing is launched."""
+    assert (tsplash.BLOCK_Q, tsplash.BLOCK_K) == (128, 64)
+    monkeypatch.setattr(tsplash, "load", lambda source: None)
+    B, S = 2, 333
+    seg = _packed_segments(B, S, 90, seed=2)
+    q = k = v = torch.zeros(B, S, 2, 64, dtype=torch.bfloat16)
+    seg_t = torch.from_numpy(seg) if segments else None
+    kv_seg = torch.roll(seg_t, 5, dims=1) if cross else None
+    call = tsplash.ForwardCall(q, k, v, seg_t, kv_seg, 0.125, True, cross, 0.0, None)
+    assert len(call.segs) == 3
+    q_seg, kv_seg_arg, kv_lo = call.segs
+    assert kv_lo.shape == (B, 3) and kv_lo.dtype == q_seg.dtype == kv_seg_arg.dtype == torch.int32
+    assert [t.data_ptr() for t in call.segs] == call.args[3:6]
+    if segments and not cross:
+        ref = jsplash._segment_windows(jnp.asarray(seg), jnp.asarray(seg), 128, 64)[0]
+        np.testing.assert_array_equal(kv_lo.numpy(), np.asarray(ref))
+    else:
+        assert (kv_lo == 0).all()
 
 
 @pytest.mark.parametrize("seed", [1234, [7, 64, 0, 2, 1]])

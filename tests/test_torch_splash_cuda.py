@@ -10,7 +10,8 @@ elsewhere.  On such a machine:
 not have.)
 
 Tolerance: out within rtol = atol = 1.6e-2 (bf16 probabilities rounded at
-different points, then out rounded once), lse within 1e-4 (fp32 in both);
+different points, then out rounded once), lse within 1e-4 (fp32 in both,
+summed in another order);
 dq, dk, dv within rtol = atol = 1.6e-2 (both round P∘drop and dS to bf16 at
 the same points, from fp32 scores summed in another order, then round the
 grads once).
@@ -46,16 +47,67 @@ def _inputs(dev, B, S, Hq, Hkv, D, seed=0):
     return q, k, v, torch.from_numpy(seg).to(dev)
 
 
-@pytest.mark.parametrize("S,Hq,Hkv,D,cross,drop,causal", [
-    (512, 4, 4, 128, False, 0.0, True),
-    (333, 4, 2, 128, False, 0.0, True),
-    (256, 4, 1, 64, False, 0.0, True),
-    (384, 2, 2, 128, True, 0.0, True),
-    (384, 4, 2, 64, False, 0.2, True),
-    (300, 2, 2, 128, False, 0.0, False),
+def _runs_across_tiles(B, S):
+    """Segment runs whose boundaries fall at many offsets inside the
+    kernels' 64- and 128-row tiles (1, 2, 63, 64, 65, 127, ... rows in),
+    with runs long enough that most tile pairs need no mask: the kernels'
+    unmasked path meets the masked one at every boundary."""
+    lengths = (193, 257, 65, 130, 301, 2, 127, 448, 63, 191)
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        p, i = 0, b
+        while p < S:
+            n = lengths[i % len(lengths)]
+            seg[b, p:p + n], p, i = i + 1, p + n, i + 1
+    return seg
+
+
+def _chunk_scaled(t, scales):
+    """t with each 64-column chunk of its head dim scaled by its own factor."""
+    f = torch.tensor(scales, device=t.device).repeat_interleave(64)
+    return (t.float() * f).to(t.dtype)
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,D,cross,drop,causal,variant", [
+    (512, 4, 4, 128, False, 0.0, True, None),
+    (333, 4, 2, 128, False, 0.0, True, None),
+    (256, 4, 1, 64, False, 0.0, True, None),
+    (384, 2, 2, 128, True, 0.0, True, None),
+    (384, 4, 2, 64, False, 0.2, True, None),
+    (300, 2, 2, 128, False, 0.0, False, None),
+    # S no multiple of the 128-row q item: ragged last items, and at 4000 (31
+    # items and 32 rows) one whose second 64-row consumer lies wholly past S
+    (200, 2, 2, 64, False, 0.0, True, None),
+    (4000, 2, 1, 128, False, 0.0, True, None),
+    # run boundaries at many offsets inside 64- and 128-row tiles
+    (2048, 4, 2, 128, False, 0.0, True, "runs"),
+    (1111, 4, 1, 64, False, 0.0, True, "runs"),
+    # GQA 4 with dropout, at D = 64 and D = 128
+    (320, 8, 2, 64, False, 0.1, True, None),
+    (333, 8, 2, 128, False, 0.1, True, "runs"),
+    # each 64-column chunk of Q, K and V its own scale: a swapped LBO / SBO
+    # of V's MN-major descriptor or a wrong chunk of the K-major ones mixes
+    # the chunks
+    (512, 2, 2, 128, False, 0.0, True, "chunks"),
+    # inputs that are not symmetric in the tile: q and k grow along the
+    # sequence, v along the head dim, so a permutation of P's columns in the
+    # register fragments moves out
+    (512, 2, 2, 128, False, 0.0, True, "ramp"),
+    (512, 4, 2, 64, False, 0.2, False, "ramp"),
+    # no causal mask, and a rotated kv chunk, at D = 128 over many tiles
+    (1111, 4, 2, 128, False, 0.0, False, "runs"),
+    (1111, 4, 2, 128, True, 0.0, True, "runs"),
 ])
-def test_kernel_matches_plain(dev, S, Hq, Hkv, D, cross, drop, causal):
+def test_kernel_matches_plain(dev, S, Hq, Hkv, D, cross, drop, causal, variant):
     q, k, v, seg = _inputs(dev, 2, S, Hq, Hkv, D)
+    if variant == "runs":
+        seg = torch.from_numpy(_runs_across_tiles(2, S)).to(dev)
+    elif variant == "chunks":
+        q, k, v = _chunk_scaled(q, [1.0, 0.25]), _chunk_scaled(k, [0.5, 2.0]), _chunk_scaled(v, [3.0, 0.5])
+    elif variant == "ramp":
+        ramp = torch.linspace(0.2, 1.8, S, device=dev)[None, :, None, None]
+        q, k = (q.float() * ramp).to(torch.bfloat16), (k.float() * ramp.flip(1)).to(torch.bfloat16)
+        v = (v.float() * torch.linspace(0.1, 2.0, D, device=dev)).to(torch.bfloat16)
     kv_seg = torch.roll(seg, S // 3, dims=1) if cross else None
     seed = [5, 0, 0, 0, 0] if drop else None
     before = splash.launches
@@ -79,27 +131,6 @@ def test_kernel_refuses_what_it_does_not_take(dev):
                                 v[..., :96].contiguous(), seg)
     with pytest.raises(ValueError, match="contiguous"):
         splash.splash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, seg)
-
-
-def _runs_across_tiles(B, S):
-    """Segment runs whose boundaries fall at many offsets inside the
-    backward's 64- and 128-row tiles (1, 2, 63, 64, 65, 127, ... rows in),
-    with runs long enough that most tile pairs need no mask: the kernels'
-    unmasked path meets the masked one at every boundary."""
-    lengths = (193, 257, 65, 130, 301, 2, 127, 448, 63, 191)
-    seg = np.zeros((B, S), np.int32)
-    for b in range(B):
-        p, i = 0, b
-        while p < S:
-            n = lengths[i % len(lengths)]
-            seg[b, p:p + n], p, i = i + 1, p + n, i + 1
-    return seg
-
-
-def _chunk_scaled(t, scales):
-    """t with each 64-column chunk of its head dim scaled by its own factor."""
-    f = torch.tensor(scales, device=t.device).repeat_interleave(64)
-    return (t.float() * f).to(t.dtype)
 
 
 @pytest.mark.parametrize("S,Hq,Hkv,D,cross,drop,causal,variant", [

@@ -9,8 +9,8 @@ the run with a non-zero exit:
 1. device        the card, its power limit, and TF32 turned off for fp32
                  matmuls;
 2. build         the CUDA kernels compiled from ``internevo_tpu_torch/csrc``
-                 (one nvcc per source, in parallel) and the Triton AdamW
-                 kernel JIT-compiled, with registers and spills; a CUDA
+                 (one nvcc per source, in parallel) and the Triton AdamW and
+                 dropout kernels JIT-compiled, with registers and spills; a CUDA
                  source whose ``ptxas`` log shows a spill fails the run, and
                  so does a splash or gmm kernel whose SASS holds no
                  ``HGMMA`` (wgmma) or any ``HMMA`` (legacy mma.sync);
@@ -69,6 +69,30 @@ the run with a non-zero exit:
 14. moe_training_plain  the same 4 steps from the same seed with the plain
                  grouped matmul; each step's loss and ``moe_loss`` are held
                  against phase 13's.
+15. kernel_dropout  the Triton residual-dropout kernel against its plain
+                 version (JAX's threefry masks, ``core/random.py``) at one
+                 packed 4096-token row of 7B width, bf16, forward and
+                 backward, bit for bit, at rates 0.1 and 0.5; a planted
+                 fault (the next layer's key) the check must refuse; timed
+                 beside its bound and the plain version;
+16. remat_grads  InternLM2 widths (``configs/7B_internlm2.py``), 2 layers,
+                 residual and attention dropout at 0.1: the grads under
+                 every recompute tier (``checkpoint=1`` plain, with
+                 ``remat_save_mlp``, with ``remat_save_qkv``, with
+                 ``activation_offload``) bit for bit ``checkpoint=0``'s, one
+                 splash forward a layer under each, the peak memory of each,
+                 and the grads against the plain attention under the same
+                 masks;
+17. internlm2_scoring  ``configs/7B_internlm2.py`` at full width and depth
+                 (GQA 32/8) scores phase 4's packed rows, as phase 4;
+18. internlm2_serving  the same model answers two greedy requests through
+                 ``SequenceGenerator`` (the GQA decode);
+19. internlm2_training  the same file at 16 layers with every layer
+                 recomputed and both dropouts at 0.1 takes 4 steps through
+                 the Trainer; launches (one splash forward a layer and
+                 micro-batch), finite norms, a falling loss, peak memory,
+                 and the step's time by kernel class and in the recompute
+                 (``tools/profile_step.py::profile``).
 
 Then a ``{"kernels": [...]}`` line and, last, the run's verdict line.  With no
 CUDA device the script exits non-zero before printing any result.  It imports
@@ -77,6 +101,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -93,19 +118,23 @@ import torch.nn.functional as F
 
 from internevo_tpu_torch.apis.inference import (SequenceGenerator, init_kv_cache, model_decode_step,
                                                  top_k_top_p_filtering)
+from internevo_tpu_torch.core import random as jrandom
 from internevo_tpu_torch.core.config import Config
 from internevo_tpu_torch.core.scheduler.no_pipeline import make_eval_step
-from internevo_tpu_torch.models.base import attention_block, block_forward
+from internevo_tpu_torch.models.base import block_forward, make_model_def
 from internevo_tpu_torch.models.modeling_moe import moe_ffn
 from internevo_tpu_torch.models.moe import dropless
-from internevo_tpu_torch.ops.cuda import build, fused_adamw, gmm
+from internevo_tpu_torch.ops.cuda import build, dropout, fused_adamw, gmm
 from internevo_tpu_torch.ops.cuda import splash_attention as splash
 from internevo_tpu_torch.ops.fused_ce import fused_norm_head_ce
 from internevo_tpu_torch.solver.optimizer import tree_leaves
-from internevo_tpu_torch.tools.profile_step import (moe_config, moe_train_setup, packed_batch, packed_segments,
-                                                    train_config, train_setup)
+from internevo_tpu_torch.tools import profile_step
+from internevo_tpu_torch.tools.profile_step import (INTERNLM2_CONFIG, internlm2_train_config, moe_config,
+                                                    moe_train_setup, packed_batch, packed_segments, train_config,
+                                                    train_setup)
 from internevo_tpu_torch.train.pipeline import initialize_model
-from internevo_tpu_torch.utils.common import device_peak_bandwidth, device_peak_tflops, get_megatron_flops
+from internevo_tpu_torch.utils.common import (device_peak_bandwidth, device_peak_tflops,
+                                              get_megatron_flops)
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -199,6 +228,29 @@ MOE_TRAIN_MOE_LOSS_GAP = (3.2e-3, 1.6e-2, 1.6, 0.55)
 # models), the plain one the fused CE's fp32 logits: a few bf16 steps of
 # logit rounding, averaged
 MOE_TOKEN_PATH_GAP = 1e-2
+# kernel_dropout: residual dropout of one packed 4096-token row at 7B width,
+# bf16, at two rates; the kernel must equal its plain version bit for bit,
+# forward and backward.  The planted fault (the next layer's key) must
+# differ from the plain output in 2·rate·(1 − rate) of the elements, within
+# this share of that
+DROPOUT_SHAPE, DROPOUT_RATES = (1, 4096, 4096), (0.1, 0.5)
+DROPOUT_FAULT_REL = 0.05
+# internlm2_training: the step's read of the applied-step count timed
+# against a host counter, in blocks of steps queued back to back, the two
+# orders alternated (8 blocks of 3 16-layer steps, ~30 s)
+READ_COST_BLOCKS, READ_COST_STEPS = ("read", "host", "host", "read") * 2, 3
+# remat_grads: InternLM2 widths, 2 layers, both dropouts 0.1, one packed row;
+# every recompute tier's grads against checkpoint=0's, largest absolute
+# difference: 0, bit for bit (the recompute runs the same kernels on the same
+# inputs, and the dropout masks and seeds are functions of the layer's key)
+REMAT_LAYERS = 2
+REMAT_TIERS = {"checkpoint_0": dict(checkpoint=0.0), "checkpoint_1": dict(checkpoint=1.0),
+               "remat_save_mlp_1": dict(checkpoint=1.0, remat_save_mlp=1.0),
+               "remat_save_qkv_1": dict(checkpoint=1.0, remat_save_qkv=1.0),
+               "activation_offload": dict(checkpoint=1.0, activation_offload=True)}
+REMAT_GRAD_MAX_ABS = 0.0
+# internlm2_serving: two greedy requests
+INTERNLM2_GREEDY = (64, 300)
 
 
 def emit(obj) -> None:
@@ -230,10 +282,11 @@ def cuda_time_ms(fn, warmup=3, reps=10) -> float:
     return float(np.median(times))
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: operations over the bf16 peak or
-    bytes over the memory rate, whichever is larger."""
-    ops_ms = flops / (device_peak_tflops() * 1e12) * 1e3
+def bound(flops: float, nbytes: float, peak_tflops: float | None = None) -> dict:
+    """The least time the card could take: operations over the peak rate of
+    their type (default the bf16 tensor-core peak) or bytes over the memory
+    rate, whichever is larger."""
+    ops_ms = flops / ((peak_tflops or device_peak_tflops()) * 1e12) * 1e3
     bytes_ms = nbytes / device_peak_bandwidth() * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
@@ -320,6 +373,12 @@ def phase_build(dev):
         emit({"phase": "build", "source": "internevo_tpu_torch/ops/cuda/fused_adamw.py (Triton JIT)",
               "param_dtype": str(dtype), "seconds": time.perf_counter() - t0,
               "registers": getattr(handle, "n_regs", None), "spills": getattr(handle, "n_spills", None)})
+    t0 = time.perf_counter()
+    _, handle = dropout.launch(torch.zeros(n, dtype=BF16, device=dev), (0, 1), 0.1)  # the training path's dtype
+    torch.cuda.synchronize()
+    emit({"phase": "build", "source": "internevo_tpu_torch/ops/cuda/dropout.py (Triton JIT)", "dtype": "bf16",
+          "seconds": time.perf_counter() - t0, "registers": getattr(handle, "n_regs", None),
+          "spills": getattr(handle, "n_spills", None)})
 
 
 def phase_kernel(dev):
@@ -434,23 +493,26 @@ def flex_forward(qt, kt, vt, seg, want) -> dict:
             "(same segment ∧ causal)", "library_flex_compile_s": compile_s, "library_flex_rel_l2": rel}
 
 
-def plain_attention(q, k, v, segment_ids=None, softmax_scale=None, causal=True, **_):
+def plain_attention(q, k, v, segment_ids=None, softmax_scale=None, causal=True, dropout_rate=0.0,
+                    dropout_seed=None, **_):
     """``flash_attention``'s signature on the splash plain forward: dense torch,
-    differentiable by plain autograd."""
-    return splash.plain_forward(q, k, v, segment_ids, None, softmax_scale, causal)[0]
+    differentiable by plain autograd, with the kernels' dropout hash."""
+    return splash.plain_forward(q, k, v, segment_ids, None, softmax_scale, causal, dropout_rate, dropout_seed)[0]
 
 
-def plain_block(cfg, batch):
+def plain_block(cfg, batch, train=False):
     """A ``block_fn`` for ``model.apply``: the model's block with the plain
-    attention in place of the kernel."""
-    def block(layer, h):
-        mixer = lambda x: attention_block(cfg, layer, x, batch["indexes"], batch["segment_ids"],  # noqa: E731
-                                          attention_fn=plain_attention)
-        return block_forward(cfg, layer, h, batch["indexes"], batch["segment_ids"], mixer=mixer)
+    attention in place of the kernel (the same dropout masks and seeds)."""
+    def block(layer, h, key):
+        return block_forward(cfg, layer, h, batch["indexes"], batch["segment_ids"], key, train,
+                             attention_fn=plain_attention)
     return block
 
 
-def phase_scoring(model, params, dev):
+def phase_scoring(model, params, dev, phase="scoring", source="configs/7B_sft.py"):
+    """``source``'s model scores two packed rows of 4096 tokens through
+    ``make_eval_step``, plain and per token; one splash forward a layer,
+    and the loss held against a forward with the plain attention."""
     cfg = model.config
     rng = np.random.RandomState(SEED + 1)
     seg, pos = packed_segments(SCORE_B, SCORE_S, MAX_SEG, PAD, rng)
@@ -493,19 +555,25 @@ def phase_scoring(model, params, dev):
                                            embed_grad_scale=cfg.embed_grad_scale)
     loss_plain = float(nll_sum / n)
     gap = abs(loss - loss_plain)
-    emit({"phase": "scoring", "model": "configs/7B_sft.py", "layers": cfg.num_layers,
-          "hidden": cfg.hidden_size, "tokens": SCORE_B * SCORE_S, "valid_tokens": n_valid,
+    emit({"phase": phase, "model": source, "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+          "heads_q_kv": [cfg.num_attention_heads, cfg.num_kv_attention_heads],
+          "params": sum(p.numel() for p in tree_leaves(params)), "tokens": SCORE_B * SCORE_S, "valid_tokens": n_valid,
           "loss": loss, "loss_per_token_path": loss_tok, "loss_plain_attention": loss_plain,
           "gap": gap, "gap_bound": LOSS_GAP, "n_correct": int(r["n_correct"]),
           "step_s": seconds, "tokens_per_s": SCORE_B * SCORE_S / seconds,
           "fwd_tflops_megatron": fwd_tflops, "mfu": fwd_tflops / device_peak_tflops(),
+          "mfu_counts": "get_megatron_flops / 3: MHA projections (an overcount under GQA)",
           "launches": launches})
     if not gap <= LOSS_GAP:
         raise AssertionError(f"kernel-path loss {loss} vs plain-attention loss {loss_plain}")
     return launches
 
 
-def phase_serving(model, params, dev):
+def phase_serving(model, params, dev, phase="serving", greedy_prompts=GREEDY_PROMPTS, sampled=True):
+    """Greedy requests of ``NEW_TOKENS`` new tokens for each prompt length
+    in ``greedy_prompts``, each repeatable, and the prefill logits of the
+    decode path held against ``model_forward``'s; with ``sampled``, one
+    sampled batch whose every token lies in its step's top-k / top-p set."""
     cfg = model.config
     rng = np.random.RandomState(SEED + 2)
     gen = SequenceGenerator((model, params), eos_token_id=-1)
@@ -521,7 +589,7 @@ def phase_serving(model, params, dev):
         new_tokens += out.numel() - prompt.numel()
         return out
 
-    for n in GREEDY_PROMPTS:
+    for n in greedy_prompts:
         prompt = torch.from_numpy(rng.randint(3, cfg.vocab_size, (1, n))).to(dev)
         out = timed_generate(prompt, max_length=n + NEW_TOKENS)
         if out.shape != (1, n + NEW_TOKENS) or not torch.equal(gen.generate(prompt, max_length=n + NEW_TOKENS), out):
@@ -534,6 +602,11 @@ def phase_serving(model, params, dev):
     rel_rms = float((dec - ref).norm() / ref.norm())
     if not rel_rms <= PREFILL_REL_RMS:
         raise AssertionError(f"prefill logits relative RMS {rel_rms} > {PREFILL_REL_RMS}")
+    if not sampled:
+        emit({"phase": phase, "requests": len(greedy_prompts), "greedy_prompts": list(greedy_prompts),
+              "heads_q_kv": [cfg.num_attention_heads, cfg.num_kv_attention_heads], "new_tokens": new_tokens,
+              "generate_s": gen_s, "decode_tokens_per_s": new_tokens / gen_s, "prefill_rel_rms": rel_rms})
+        return
 
     prompt = torch.from_numpy(rng.randint(3, cfg.vocab_size, (SAMPLE_ROWS, SAMPLE_PROMPT))).to(dev)
     total = SAMPLE_PROMPT + NEW_TOKENS
@@ -549,7 +622,7 @@ def phase_serving(model, params, dev):
             outside += int((~allowed.gather(1, out[:, t:t + 1])).sum())
             if t + 1 < total:
                 logits, cache = model_decode_step(cfg, params, out[:, t:t + 1], cache, t)
-    emit({"phase": "serving", "requests": len(GREEDY_PROMPTS) + 1, "greedy_prompts": list(GREEDY_PROMPTS),
+    emit({"phase": phase, "requests": len(greedy_prompts) + 1, "greedy_prompts": list(greedy_prompts),
           "sampled_rows": SAMPLE_ROWS, "new_tokens": new_tokens, "generate_s": gen_s,
           "decode_tokens_per_s": new_tokens / gen_s, "prefill_rel_rms": rel_rms,
           "sampled_outside_filter": outside})
@@ -780,7 +853,7 @@ def phase_train_grads(dev):
     torch.cuda.synchronize()
     launched = tuple(a - b for a, b in zip((splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq),
                                            counts))
-    loss_p, g_plain = grads(plain_block(cfg, batch))
+    loss_p, g_plain = grads(plain_block(cfg, batch, train=True))
     rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
            for a, b in zip(g_kernel, g_plain)]
     finite = all(bool(torch.isfinite(a.float()).all()) for a in g_kernel)
@@ -1005,7 +1078,7 @@ def moe_block(cfg, batch, grouped_dot=None, routes=None, first_ffn_input=None):
     ``grouped_dot`` in place of the kernels if given, appending each layer's
     top-k expert ids to ``routes`` and the first layer's FFN input to
     ``first_ffn_input``."""
-    def block(layer, h):
+    def block(layer, h, key):
         def ffn(hh):
             if routes is not None:
                 with torch.no_grad():
@@ -1014,7 +1087,7 @@ def moe_block(cfg, batch, grouped_dot=None, routes=None, first_ffn_input=None):
             if first_ffn_input is not None and not first_ffn_input:
                 first_ffn_input.append(hh)
             return moe_ffn(cfg, layer, hh, grouped_dot=grouped_dot)
-        return block_forward(cfg, layer, h, batch["indexes"], batch["segment_ids"], ffn=ffn)
+        return block_forward(cfg, layer, h, batch["indexes"], batch["segment_ids"], key, ffn=ffn)
     return block
 
 
@@ -1271,6 +1344,228 @@ def phase_moe_training_plain(dev, kernel_trajectory, setup=moe_train_setup):
                              f"moe_loss {moe_gap}")
 
 
+def micro_key(step: int = 0, micro: int = 0) -> jrandom.Key:
+    """The train step's key of one micro-batch under the launch seed 1024:
+    ``rng(1024, "dropout")`` folded by the step, then the micro-batch."""
+    return jrandom.fold_in(jrandom.fold_in(jrandom.rng(1024, "dropout"), step), micro)
+
+
+def bitwise_equal(a, b) -> bool:
+    return a.dtype == b.dtype and bool(torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+                                                   b.view(torch.int16 if b.element_size() == 2 else torch.int32)))
+
+
+def phase_kernel_dropout(dev):
+    """The Triton dropout kernel against its plain version at one packed
+    4096-token row of 7B width, bf16, forward and backward through the
+    autograd Function, bit for bit, at ``DROPOUT_RATES``; a planted fault
+    (layer 4's key in place of layer 3's) the check must refuse; timings."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    x = torch.randn(DROPOUT_SHAPE, generator=g, device=dev).to(BF16)
+    gy = torch.randn(DROPOUT_SHAPE, generator=g, device=dev).to(BF16)
+    key = jrandom.fold_in(jrandom.fold_in(micro_key(), 3), 0)      # layer 3, tag 0
+    planted_key = jrandom.fold_in(jrandom.fold_in(micro_key(), 4), 0)
+    worst = 0.0
+    for rate in DROPOUT_RATES:
+        xr = x.clone().requires_grad_()
+        y = dropout.dropout(xr, key, rate)
+        y.backward(gy)
+        planted = dropout.launch(x, planted_key, rate)[0]
+        torch.cuda.synchronize()
+        want_y, want_g = dropout.plain_dropout(x, key, rate), dropout.plain_dropout(gy, key, rate)
+        y = y.detach()
+        err = max(float((y.float() - want_y.float()).abs().max()), float((xr.grad.float() - want_g.float()).abs().max()))
+        differ = float((planted.view(torch.int16) != want_y.view(torch.int16)).float().mean())
+        expect = 2 * rate * (1 - rate)
+        r = {"rate": rate, "forward_bitwise": bitwise_equal(y, want_y), "backward_bitwise": bitwise_equal(xr.grad, want_g),
+             "max_abs_err": err, "kept_share": float((want_y != 0).float().mean()),
+             "planted_refused": not bitwise_equal(planted, want_y), "planted_differ_share": differ,
+             "planted_expected_share": expect}
+        emit({"phase": "kernel_dropout", "case": f"rate {rate}", "shape": list(DROPOUT_SHAPE), "dtype": "bf16", **r})
+        if not (r["forward_bitwise"] and r["backward_bitwise"]):
+            raise AssertionError(f"rate {rate}: the dropout kernel differs from its plain version: {r}")
+        if not r["planted_refused"] or not abs(differ - expect) <= DROPOUT_FAULT_REL * expect:
+            raise AssertionError(f"rate {rate}: the planted fault (the next layer's key) was not refused as "
+                                 f"expected: {r}")
+        worst = max(worst, err)
+        del xr, y, planted, want_y, want_g
+    rate = DROPOUT_RATES[0]
+    out = torch.empty_like(x)
+    kernel_ms = cuda_time_ms(lambda: dropout.launch(x, key, rate, out))
+    plain_ms = cuda_time_ms(lambda: dropout.plain_dropout(x, key, rate), warmup=1, reps=3)
+    philox_ms = cuda_time_ms(lambda: F.dropout(x, rate))
+    n = x.numel()
+    # h read once and the output written once; the hash's integer operations
+    # enter no bound, the data sheet giving no integer rate
+    b = bound(0, 2 * nbytes(x))
+    emit({"phase": "kernel_dropout", "case": f"timing rate {rate}", "elements": n, "kernel_ms": kernel_ms,
+          "plain_ms": plain_ms, "torch_dropout_ms": philox_ms,
+          "torch_dropout": "F.dropout (Philox masks: another function, a yardstick only)", **b,
+          "kernel_gb_per_s": 2 * nbytes(x) / kernel_ms / 1e6})
+    del x, gy, out
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, "torch_dropout_ms": philox_ms,
+            "max_abs_err": worst, **b}
+
+
+def kernel_counts() -> tuple:
+    return (splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq, dropout.launches,
+            fused_adamw.launches)
+
+
+def zero_counts() -> None:
+    splash.launches = splash.launches_bwd_dkdv = splash.launches_bwd_dq = dropout.launches = 0
+    fused_adamw.launches = gmm.launches_gmm = gmm.launches_gmm_dgrad = gmm.launches_tgmm = 0
+
+
+def phase_remat_grads(dev):
+    """InternLM2 widths, 2 layers, residual and attention dropout at 0.1, one
+    packed row through the kernels: every param grad under each recompute
+    tier against checkpoint=0's, bit for bit; the launches of each (one
+    splash forward a layer however the layer is recomputed); the peak memory
+    of each; and checkpoint=0's grads against the plain attention under the
+    same masks."""
+    model, params = initialize_model(internlm2_train_config(REMAT_LAYERS), dev,
+                                     torch.Generator(device=dev).manual_seed(SEED + 14))
+    L = model.config.num_layers
+    batch = packed_batch((TRAIN_B,), TRAIN_S, 0, model.config.vocab_size, np.random.RandomState(SEED + 14), dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def grads(cfg, block_fn=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base, before = torch.cuda.memory_allocated(), kernel_counts()
+        hidden = make_model_def(cfg).apply(params, batch["input_ids"], batch["indexes"], batch["segment_ids"],
+                                           dropout_rng=micro_key(), train=True, block_fn=block_fn,
+                                           return_hidden=True)
+        nll, n, _ = fused_norm_head_ce(hidden, params["norm"], params["head"]["weight"], batch["labels"],
+                                       eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale)
+        loss = nll / n
+        loss.backward()
+        del hidden
+        torch.cuda.synchronize()
+        out = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return {"loss": float(loss.detach()), "grads": out, "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                "launches_fwd_dkdv_dq_dropout": [a - b for a, b in zip(kernel_counts()[:4], before)]}
+
+    runs = {name: grads(dataclasses.replace(model.config, **tier)) for name, tier in REMAT_TIERS.items()}
+    ref = runs["checkpoint_0"]
+    bad = []
+    for name, r in runs.items():
+        recomputed = name != "checkpoint_0"
+        want = [L, L, L, 2 * L * (3 if recomputed else 2)]
+        diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(r["grads"], ref["grads"]))
+        emit({"phase": "remat_grads", "tier": name, "layers": L, "loss": r["loss"], "grad_max_abs_diff": diff,
+              "bound": REMAT_GRAD_MAX_ABS, "peak_gb_over_params": r["peak_gb"],
+              "launches_fwd_dkdv_dq_dropout": r["launches_fwd_dkdv_dq_dropout"], "want": want})
+        if r["launches_fwd_dkdv_dq_dropout"] != want or not diff <= REMAT_GRAD_MAX_ABS or r["loss"] != ref["loss"]:
+            bad.append(name)
+    cfg0 = dataclasses.replace(model.config, checkpoint=0.0)
+    plain = grads(cfg0, plain_block(cfg0, batch, train=True))
+    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+           for a, b in zip(ref["grads"], plain["grads"])]
+    worst = int(np.argmax(rel))
+    emit({"phase": "remat_grads", "tier": "checkpoint_0 vs plain attention, same masks", "loss_kernel": ref["loss"],
+          "loss_plain": plain["loss"], "max_rel_l2": rel[worst], "worst_leaf": worst,
+          "median_rel_l2": float(np.median(rel)), "bound": GRAD_REL_L2,
+          "finite": all(bool(torch.isfinite(a.float()).all()) for a in ref["grads"])})
+    if bad:
+        raise AssertionError(f"recompute tiers {bad} differ from checkpoint=0 in grads, loss or launches")
+    if not rel[worst] <= GRAD_REL_L2:
+        raise AssertionError(f"kernel-path grads with dropout vs plain attention: relative L2 {rel[worst]}")
+    del model, params, leaves, runs, ref, plain
+
+
+def step_read_cost(engine, batch) -> dict:
+    """What the train step's read of ``opt_state["step"]`` (the count of
+    applied steps that the dropout stream folds, one wait for the previous
+    step) costs: blocks of ``READ_COST_STEPS`` steps queued back to back, in
+    the order ``READ_COST_BLOCKS``, each step reading the count from the
+    device ("read", as the trainer runs it) or given it by a host counter
+    ("host", no read).  Seconds a step of each block, and the medians."""
+    lr = engine.lr_scheduler.get_lr(engine.step_count)
+    beta2 = engine.beta2_scheduler.get_beta2(engine.step_count + 1) if engine.beta2_scheduler else None
+    applied = int(engine.opt_state["step"])
+    blocks = {"read": [], "host": []}
+    for mode in READ_COST_BLOCKS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(READ_COST_STEPS):
+            engine.params, engine.opt_state, _ = engine.train_step_fn(
+                engine.params, engine.opt_state, batch, lr, beta2, step=applied if mode == "host" else None)
+            applied += 1
+        torch.cuda.synchronize()
+        blocks[mode].append((time.perf_counter() - t0) / READ_COST_STEPS)
+    return {"order": list(READ_COST_BLOCKS), "steps_a_block": READ_COST_STEPS, "step_s": blocks,
+            "median_s": {k: float(np.median(v)) for k, v in blocks.items()}}
+
+
+def phase_internlm2_training(dev):
+    """``configs/7B_internlm2.py`` at full width and 16 layers, every layer
+    recomputed, residual and attention dropout at 0.1, 4 steps through the
+    Trainer on one fixed batch (``profile_step.internlm2_train_config``);
+    then the step's time by kernel class from ``profile_step.profile``, and
+    the cost of the step's read of the applied-step count
+    (``step_read_cost``)."""
+    torch.cuda.reset_peak_memory_stats()
+    config, model, params, trainer, batch = train_setup(dev, SEED + 12, internlm2_train_config())
+    cfg, data = model.config, config.data
+    micro_num, tokens = data.micro_num, data.micro_num * data.micro_bsz * data.seq_len
+    leaves = tree_leaves(params)
+    L = cfg.num_layers
+    want = [L * micro_num] * 3 + [2 * L * micro_num * 3, len(leaves)]
+    zero_counts()
+    losses, times = [], []
+    for step in range(1, TRAIN_STEPS + 1):
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.execute_schedule(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = [a - b for a, b in zip(kernel_counts(), before)]
+        groups = {k: float(v) for k, v in m["grad_norm_groups"].items()}
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "grad_norm_groups": groups,
+               "found_inf": bool(m["found_inf"]), "lr": trainer.engine.current_lr, "n_tokens": int(m["n_tokens"])}
+        emit({"phase": "internlm2_training", "step": step, "step_s": times[-1],
+              "launches_fwd_dkdv_dq_dropout_adamw": launched, **rec})
+        if launched != want:
+            raise AssertionError(f"step {step}: launches {launched}, want {want}")
+        if rec["found_inf"] or not all(map(math.isfinite, [rec["loss"], rec["grad_norm"], *groups.values()])):
+            raise AssertionError(f"step {step}: non-finite loss or grad norms: {rec}")
+        if rec["n_tokens"] != tokens:
+            raise AssertionError(f"step {step}: {rec['n_tokens']} valid tokens, want {tokens}")
+        losses.append(rec["loss"])
+    total = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"the loss did not fall on every step: {losses}")
+    step_s = float(np.median(times[1:]))
+    flops = dict(seq_len=data.seq_len, hidden_size=cfg.hidden_size, num_layers=L, vocab_size=cfg.vocab_size,
+                 global_batch_size=micro_num * data.micro_bsz, mlp_ratio=cfg.mlp_ratio)
+    tflops4 = get_megatron_flops(step_s, checkpoint=True, **flops)
+    tflops3 = get_megatron_flops(step_s, checkpoint=False, **flops)
+    prof = profile_step.profile(lambda: trainer.execute_schedule(batch))
+    read_cost = step_read_cost(trainer.engine, batch)
+    n_params = sum(p.numel() for p in leaves)
+    emit({"phase": "internlm2_training", "model": "configs/7B_internlm2.py", "layers": L,
+          "cut": f"num_layers 32 -> {L}; overrides checkpoint=1, drop_rate=0.1, attn_drop_rate=0.1",
+          "params": n_params, "state_gb_at_18_bytes": 18 * n_params / 1e9, "leaves": len(leaves),
+          "micro_num": micro_num, "tokens_per_step": tokens, "losses": losses, "step_s_median_2_4": step_s,
+          "step_s": times, "step_read_cost": read_cost, "tokens_per_s": tokens / step_s,
+          "tflops_megatron_factor4": tflops4, "mfu_megatron_factor4": tflops4 / device_peak_tflops(),
+          "tflops_megatron_factor3": tflops3, "mfu_megatron_factor3": tflops3 / device_peak_tflops(),
+          "mfu_counts": "get_megatron_flops: factor 4 counts the recompute (as bench.py with checkpoint), factor 3 "
+                        "does not (the 8-layer 7B_sft phase's); both count MHA projections, an overcount under "
+                        "GQA 32/8",
+          "peak_memory_gb": peak, "launches_fwd_dkdv_dq_dropout_adamw": list(total), "profile": prof})
+    del trainer, model, params, leaves, batch
+    return dict(zip(("fwd", "dkdv", "dq", "dropout", "adamw"), total))
+
+
 def main() -> int:
     phase_device()
     dev = torch.device("cuda")
@@ -1306,6 +1601,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_moe_training_plain(dev, trajectory)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dropout_kernel = phase_kernel_dropout(dev)
+    phase_remat_grads(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = initialize_model(Config.from_file(INTERNLM2_CONFIG), "cuda",
+                                     torch.Generator(device=dev).manual_seed(SEED))
+    internlm2_scored = phase_scoring(model, params, dev, "internlm2_scoring", "configs/7B_internlm2.py")
+    phase_serving(model, params, dev, "internlm2_serving", INTERNLM2_GREEDY, sampled=False)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    internlm2 = phase_internlm2_training(dev)
 
     gmm_source = f"internevo_tpu_torch/csrc/{gmm.SOURCE}"
     bwd_source = f"internevo_tpu_torch/csrc/{splash.BWD_SOURCE}"
@@ -1318,17 +1628,22 @@ def main() -> int:
     emit({"kernels": [
         {"name": "splash_attention_fwd", "route": "cuda", "source": f"internevo_tpu_torch/csrc/{splash.SOURCE}",
          "replaces": "internevo_tpu/ops/pallas/splash_attention.py:558 (_fwd_kernel_bsd), :457 (_fwd_kernel)",
-         "launches": launches, "launches_training": trained["fwd"], "max_abs_err": kernel["max_err_out"],
+         "launches": launches, "launches_training": trained["fwd"], "launches_internlm2_scoring": internlm2_scored,
+         "launches_internlm2_training": internlm2["fwd"], "max_abs_err": kernel["max_err_out"],
          "max_err_lse": kernel["max_err_lse"], "ms": kernel["kernel_ms"], "wrapper_ms": kernel["wrapper_ms"],
          "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
          "library_ms": kernel["library_ms"], "library_flex_ms": kernel["library_flex_ms"]},
         {"name": "splash_attention_bwd_dkdv", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,
-         "launches": trained["dkdv"], **bwd["dkdv"], **bwd_common},
+         "launches": trained["dkdv"], "launches_internlm2_training": internlm2["dkdv"], **bwd["dkdv"],
+         **bwd_common},
         {"name": "splash_attention_bwd_dq", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,
-         "launches": trained["dq"], **bwd["dq"], **bwd_common},
+         "launches": trained["dq"], "launches_internlm2_training": internlm2["dq"], **bwd["dq"], **bwd_common},
         {"name": "fused_adamw", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/fused_adamw.py",
          "replaces": "internevo_tpu/ops/pallas/fused_adamw.py:37 (_kernel)", "launches": trained["adamw"],
-         **adamw},
+         "launches_internlm2_training": internlm2["adamw"], **adamw},
+        {"name": "dropout", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/dropout.py",
+         "replaces": "internevo_tpu/models/base.py:412 (dropout: jax.random.bernoulli, no TPU kernel)",
+         "launches": internlm2["dropout"], **dropout_kernel},
         {"name": "gmm", "route": "cuda", "source": gmm_source,
          "replaces": "internevo_tpu/ops/pallas/gmm.py:122 (_gmm_kernel)", "launches": moe_trained["gmm"],
          "launches_scoring": moe_scored, **gmm_kernels["gmm"]},

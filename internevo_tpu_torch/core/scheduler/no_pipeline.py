@@ -5,7 +5,14 @@ step.
 An eval batch is a dict of (B, S) tensors: ``input_ids``, ``indexes`` (packed
 positions), ``segment_ids`` and ``labels`` (-100 ignored); a train batch has
 a leading micro axis, (micro_num, B, S).  Eval steps run under
-``torch.inference_mode()``; train steps under autograd.
+``torch.inference_mode()``, without dropout; train steps under autograd.
+
+A model with residual or attention dropout draws JAX's stream: ``rng(seed,
+"dropout")`` folded by the optimizer's count of applied steps, then by the
+micro-batch index (``internevo_tpu/core/scheduler/no_pipeline.py:98-127``);
+the model folds in the layer.  The JAX step also counts an MoE model with
+two or more experts a token as stochastic; the port's dropless routing reads
+no key, so only dropout does.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from ...core import random as jrandom
 from ...models.base import ModelDef
 from ...ops.cross_entropy import cross_entropy_loss
 from ...ops.fused_ce import fused_norm_head_ce, fused_norm_head_nll_tokens
@@ -22,29 +30,31 @@ from ...solver.optimizer import AdamWConfig, GradScalerConfig, optimizer_step, t
 
 def _micro_loss_and_metrics(model: ModelDef, params, micro, label_smoothing: float = 0.0,
                             moe_loss_coeff: float = 0.01, fused_ce: bool = True,
-                            is_train: bool = True, chunk_size: int | None = None):
+                            is_train: bool = True, chunk_size: int | None = None,
+                            save_logits: bool = False, dropout_rng=None):
     """(loss, (ce_loss, n_valid, n_correct, moe_loss)): the fused
     norm+head+CE for RMSNorm models, logits + ``cross_entropy_loss``
     otherwise.  An MoE model returns ``(hidden or logits, {"moe": aux})``;
     the loss is then ce_loss + moe_loss_coeff * aux, and dense models have
-    moe_loss 0."""
+    moe_loss 0.  ``dropout_rng`` is the micro-batch's key."""
     cfg = model.config
     moe_loss = torch.zeros((), dtype=torch.float32, device=micro["input_ids"].device)
     if fused_ce and cfg.norm_type == "rmsnorm":
         hidden = model.apply(params, micro["input_ids"], micro["indexes"], micro["segment_ids"],
-                             train=is_train, return_hidden=True)
+                             dropout_rng=dropout_rng, train=is_train, return_hidden=True)
         if isinstance(hidden, tuple):
             hidden, aux = hidden
             moe_loss = aux.get("moe", moe_loss)
         nll_sum, n_valid, n_correct = fused_norm_head_ce(
             hidden, params["norm"], params["head"]["weight"], micro["labels"],
             eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale,
-            norm_head=cfg.norm_head, label_smoothing=label_smoothing, chunk_size=chunk_size)
+            norm_head=cfg.norm_head, label_smoothing=label_smoothing, chunk_size=chunk_size,
+            save_logits=save_logits)
         ce_loss = nll_sum / n_valid.clamp_min(1)
         return ce_loss + moe_loss_coeff * moe_loss, (ce_loss, n_valid, n_correct, moe_loss)
 
     logits = model.apply(params, micro["input_ids"], micro["indexes"], micro["segment_ids"],
-                         train=is_train)
+                         dropout_rng=dropout_rng, train=is_train)
     if isinstance(logits, tuple):
         logits, aux = logits
         moe_loss = aux.get("moe", moe_loss)
@@ -56,18 +66,29 @@ def _micro_loss_and_metrics(model: ModelDef, params, micro, label_smoothing: flo
 
 
 def make_train_step(model: ModelDef, adam_cfg: AdamWConfig, scaler_cfg: GradScalerConfig,
-                    label_smoothing: float = 0.0, moe_loss_coeff: float = 0.01) -> Callable:
-    """``train_step(params, opt_state, batch, lr, beta2) -> (params,
-    opt_state, metrics)`` (the JAX ``make_train_step``; reference
+                    label_smoothing: float = 0.0, moe_loss_coeff: float = 0.01, seed: int = 1024,
+                    save_logits: bool = False, chunk_size: int | None = None) -> Callable:
+    """``train_step(params, opt_state, batch, lr, beta2, step=None) ->
+    (params, opt_state, metrics)`` (the JAX ``make_train_step``; reference
     ``no_pipeline_scheduler.py:28-239``).
 
     ``batch`` tensors are (micro_num, B, S); the loop runs over the leading
     micro axis.  Each micro-batch's loss is scaled by ``grad_scale /
     micro_num`` before its backward, and its bf16 ``.grad``s are added into
     fp32 accumulators and dropped, so one micro-batch's grads live at a time.
-    Then one ``optimizer_step`` updates params and state in place."""
+    Then one ``optimizer_step`` updates params and state in place.
 
-    def train_step(params, opt_state, batch, lr, beta2):
+    With dropout, the stream folds the optimizer's count of applied steps
+    (``opt_state["step"]``, which a skipped step does not advance), read
+    from the device at the start of the step: one wait for the previous
+    step a step.  A caller that already holds that count as a host int may
+    pass it as ``step``.  ``save_logits`` and ``chunk_size`` are the fused
+    CE's knobs (``ops/fused_ce.py::loss_knobs``)."""
+    cfg = model.config
+    stochastic = cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0
+    base_rng = jrandom.rng(seed, "dropout") if stochastic else None
+
+    def train_step(params, opt_state, batch, lr, beta2, step: int | None = None):
         micro_num = batch["input_ids"].shape[0]
         scale = opt_state["grad_scale"]
         leaves = tree_leaves(params)
@@ -78,10 +99,14 @@ def make_train_step(model: ModelDef, adam_cfg: AdamWConfig, scaler_cfg: GradScal
         zero = torch.zeros((), dtype=torch.float32, device=scale.device)
         loss_sum, moe_sum = zero, zero
         n_tokens = n_correct = torch.zeros((), dtype=torch.int64, device=scale.device)
+        step_rng = None
+        if stochastic:
+            step_rng = jrandom.fold_in(base_rng, int(opt_state["step"]) if step is None else step)
         for i in range(micro_num):
             micro = {k: v[i] for k, v in batch.items()}
             loss, (ce_loss, n_valid, n_cor, moe_loss) = _micro_loss_and_metrics(
-                model, params, micro, label_smoothing, moe_loss_coeff)
+                model, params, micro, label_smoothing, moe_loss_coeff, chunk_size=chunk_size,
+                save_logits=save_logits, dropout_rng=None if step_rng is None else jrandom.fold_in(step_rng, i))
             (loss * scale / micro_num).backward()
             with torch.no_grad():
                 for a, p in zip(acc, leaves):

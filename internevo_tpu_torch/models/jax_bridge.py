@@ -1,9 +1,10 @@
 """Weight bridge between the JAX parameter tree and the port's layout.
 
 JAX tree (``internevo_tpu/models/base.py:171-229``): block leaves stacked on a
-leading layer axis, dense kernels (in, out), head kernel (hidden, vocab).  The
-port: a list of per-layer dicts, ``torch.nn.Linear`` weights (out, in) under
-"weight", head weight (vocab, hidden).  The MoE subtree ``blocks["moe"]``
+leading layer axis, dense kernels (in, out), head kernel (hidden, vocab), or
+(hidden, 1) for a reward model.  The port: a list of per-layer dicts,
+``torch.nn.Linear`` weights (out, in) under "weight", head weight (vocab,
+hidden), or (1, hidden).  The MoE subtree ``blocks["moe"]``
 (gate, expert stacks, residual coefficient) keeps the JAX layout, only
 unstacked per layer: the grouped-matmul kernel takes the experts as (E, K, N),
 and a transpose per call would copy them.  Every transpose and unstacking

@@ -29,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.registry import MODEL_INITIALIZER
-from .base import (ModelConfig, ModelDef, _dense, _normal, _refuse_untrained_settings, block_forward,
-                   config_from_kwargs, embed_tokens, head_logits, init_params)
+from ..core import random as jrandom
+from .base import (ModelConfig, ModelDef, _dense, _normal, block_forward, config_from_kwargs, embed_tokens,
+                   head_logits, init_params, layer_plan, run_layer)
 from .moe.dropless import dropless_moe_apply
 
 MODEL_TYPE = "INTERNLM_MoE"
@@ -90,24 +91,26 @@ def moe_ffn(cfg: ModelConfig, layer: dict, h, grouped_dot: Optional[Callable] = 
 
 
 def moe_model_forward(cfg: ModelConfig, params: dict, input_ids, positions, segment_ids,
-                      train: bool = False, block_fn: Optional[Callable] = None,
-                      return_hidden: bool = False):
+                      dropout_rng: Optional[jrandom.Key] = None, train: bool = False,
+                      block_fn: Optional[Callable] = None, return_hidden: bool = False):
     """Forward over the layer stack: (logits, {"moe": Σ l_aux}), or the
     pre-final-norm hidden states in place of the logits with
     ``return_hidden``.  The aux losses are summed over the layers, not
-    averaged (``modeling_moe.py:208-209``).  ``block_fn(layer, x) -> (x,
+    averaged (``modeling_moe.py:208-209``).  Dropout and recompute as the
+    dense stack's (``models/base.py::layer_plan``), except that the number of
+    recomputed layers rounds (``modeling_moe.py:178``).  Dropless routing
+    draws nothing from the layer's key.  ``block_fn(layer, x, key) -> (x,
     l_aux)`` replaces the block body."""
-    if train:
-        _refuse_untrained_settings(cfg)
     if block_fn is None:
-        def block_fn(layer, h):
-            return block_forward(cfg, layer, h, positions, segment_ids, ffn=lambda hh: moe_ffn(cfg, layer, hh))
+        def block_fn(layer, h, key):
+            return block_forward(cfg, layer, h, positions, segment_ids, key, train,
+                                 ffn=lambda hh: moe_ffn(cfg, layer, hh))
     x = embed_tokens(cfg, params, input_ids)
     if cfg.residual_in_fp32:
         x = x.float()
     moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params["blocks"]:
-        x, l_aux = block_fn(layer, x)
+    for layer, key, policy in layer_plan(cfg, params["blocks"], dropout_rng, train, moe=True):
+        x, l_aux = run_layer(block_fn, layer, key, policy, x)
         moe_loss = moe_loss + l_aux
     if return_hidden:
         return x, {"moe": moe_loss}

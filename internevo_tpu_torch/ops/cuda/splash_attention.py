@@ -12,7 +12,10 @@ Dispatch is on the tensors' device and nothing else: CPU tensors run the
 plain versions (``plain_forward`` / ``plain_backward``, dense torch over a
 materialised score tensor), CUDA tensors launch
 ``csrc/splash_attention_fwd.cu`` forward and ``csrc/splash_attention_bwd.cu``
-backward, or raise.
+backward, or raise.  Inside a recomputed layer (``core/remat.py``) the
+forward's (out, lse) are kept from the first forward (``remat.FLASH``), so
+the recompute hands them to the backward without launching the forward
+kernel again.
 
 The TPU kernel visits, per q block, only kv blocks from the start of the
 segment run at the block's first token (``kv_lo``) up to the diagonal; its
@@ -28,8 +31,10 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ...core import remat
 from .build import load
 
 LOG2E = 1.4426950408889634
@@ -84,22 +89,29 @@ def _keep_thresh(rate: float) -> int:
     return min(int(rate * 2.0**32), 2**32 - 1)
 
 
-def _norm_seed(dropout_seed) -> torch.Tensor:
-    """A dropout seed as the (5,) int32 vector ``[seed, row0, col0, head0,
-    batch0]``; a scalar or (1,) seed means offsets 0."""
+def _norm_seed(dropout_seed) -> tuple[int, ...]:
+    """A dropout seed as the five int32 words ``(seed, row0, col0, head0,
+    batch0)``, host ints wrapped to int32 as ``jnp.asarray`` wraps them; a
+    scalar or (1,) seed means offsets 0.  A Python int, a sequence of ints or
+    a numpy array costs no device work, which is what the model passes (one
+    seed a layer, drawn on the host from the layer's key); a tensor seed is
+    read to the host, which for a CUDA tensor waits for the device."""
     if dropout_seed is None:
-        return torch.zeros(5, dtype=torch.int32)
-    arr = torch.as_tensor(dropout_seed).reshape(-1).to("cpu", torch.int64)
-    arr = ((arr + 2**31) % 2**32 - 2**31).to(torch.int32)  # int32 wrap, as jnp.asarray
-    if arr.shape[0] == 5:
-        return arr
-    if arr.shape[0] != 1:
-        raise ValueError(f"dropout_seed must be scalar or (5,): {tuple(arr.shape)}")
-    return torch.cat([arr, torch.zeros(4, dtype=torch.int32)])
+        return (0,) * 5
+    if isinstance(dropout_seed, torch.Tensor):
+        vals = dropout_seed.reshape(-1).tolist()
+    else:
+        vals = np.asarray(dropout_seed).reshape(-1).tolist()
+    vals = [(int(v) + 2**31) % 2**32 - 2**31 for v in vals]
+    if len(vals) == 1:
+        vals += [0] * 4
+    if len(vals) != 5:
+        raise ValueError(f"dropout_seed must be scalar or (5,): {len(vals)} values")
+    return tuple(vals)
 
 
 def _seed_u32(dropout_seed) -> list[int]:
-    return [int(s) & _M32 for s in _norm_seed(dropout_seed).tolist()]
+    return [s & _M32 for s in _norm_seed(dropout_seed)]
 
 
 def dropout_mask_dense(rate: float, dropout_seed, B: int, H: int, S: int, Sk: int,
@@ -496,8 +508,8 @@ class _Splash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, scale, causal, dropout_rate, dropout_seed):
-        out, lse = _forward(q, k, v, segment_ids, None, scale, causal, False, dropout_rate,
-                            dropout_seed)
+        out, lse = remat.saved(remat.FLASH, lambda: _forward(q, k, v, segment_ids, None, scale, causal, False,
+                                                             dropout_rate, dropout_seed), q.device)
         _save(ctx, q, k, v, out, lse, segment_ids, None, scale, causal, False, dropout_rate,
               dropout_seed)
         return out
@@ -514,8 +526,8 @@ class _SplashWithLse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv, dropout_rate,
                 dropout_seed):
-        out, lse = _forward(q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv,
-                            dropout_rate, dropout_seed)
+        out, lse = remat.saved(remat.FLASH, lambda: _forward(q, k, v, segment_ids, kv_segment_ids, scale, causal,
+                                                             cross_kv, dropout_rate, dropout_seed), q.device)
         _save(ctx, q, k, v, out, lse, segment_ids, kv_segment_ids, scale, causal, cross_kv,
               dropout_rate, dropout_seed)
         return out, lse

@@ -25,6 +25,16 @@ from .norm import rms_norm
 DEFAULT_CHUNK = 512
 
 
+def loss_knobs(loss: dict) -> dict:
+    """``save_logits`` and ``chunk_size`` from a config's ``loss`` block
+    (``save_ce_logits``, ``ce_chunk_size``), as the JAX ``gpc_loss_knobs``
+    resolves them from the launched config (``internevo_tpu/ops/fused_ce.py:
+    24-38``): unset, the logits are recomputed and chunks are
+    ``DEFAULT_CHUNK`` tokens.  The port reads no environment variable."""
+    return {"save_logits": bool(loss.get("save_ce_logits") or False),
+            "chunk_size": int(loss.get("ce_chunk_size", 0) or 0) or None}
+
+
 def _head_weight(head_weight, embed_grad_scale: float, norm_head: bool):
     w = head_weight
     if embed_grad_scale != 1:

@@ -6,6 +6,8 @@ JAX step).
     python -m internevo_tpu_torch.tools.profile_step score
     python -m internevo_tpu_torch.tools.profile_step moe_train
     python -m internevo_tpu_torch.tools.profile_step moe_score
+    python -m internevo_tpu_torch.tools.profile_step internlm2_train
+    python -m internevo_tpu_torch.tools.profile_step internlm2_score
 
 ``train``: the training slice's setup (``train_setup``): ``configs/7B_sft.py``
 at full width and 8 layers, one step of 4 micro-batches of one packed
@@ -13,16 +15,21 @@ at full width and 8 layers, one step of 4 micro-batches of one packed
 ``score``: the same config at full depth, one ``make_eval_step`` over two
 packed rows of 4096 tokens.  ``moe_train`` and ``moe_score``: the same two
 on ``configs/7B_MoE4_sft.py`` routed dropless (``moe_config``), training at
-4 layers (``moe_train_setup``), scoring at full depth.  Weights are random
-from a seed.  The step runs
+4 layers (``moe_train_setup``), scoring at full depth.  ``internlm2_train``:
+``configs/7B_internlm2.py`` at full width and 16 layers with recompute and
+residual and attention dropout (``internlm2_train_config``), one step as
+``train``'s; ``internlm2_score``: the same file at full depth, scored as
+``score``.  Weights are random from a seed.  The step runs
 twice untraced (kernel builds, allocator), then once under
 ``torch.profiler`` with CPU and CUDA activities.  One JSON line: the card and
 its power limit, the traced step's wall seconds, the device's busy seconds
 (the union of kernel intervals) and busy share, kernel milliseconds and
-launches by class, and the slowest kernels.
+launches by class, the slowest kernels, and the kernel time inside the
+recompute's profiler ranges (``core/remat.py``), or null where the profiler
+records no range.
 
-``train_setup``, ``moe_train_setup`` and ``packed_batch`` are also what
-``chip_smoke.py`` trains with.
+``train_setup``, ``moe_train_setup``, ``internlm2_train_config`` and
+``packed_batch`` are also what ``chip_smoke.py`` trains with.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..core import remat
 from ..core.config import Config
 from ..core.scheduler.no_pipeline import make_eval_step
 from ..core.trainer import Trainer
@@ -43,6 +51,7 @@ from ..train.pipeline import initialize_model, initialize_optimizer, initialize_
 
 CONFIG = Path(__file__).resolve().parents[2] / "configs" / "7B_sft.py"
 MOE_CONFIG = CONFIG.with_name("7B_MoE4_sft.py")
+INTERNLM2_CONFIG = CONFIG.with_name("7B_internlm2.py")
 SEED = 0
 ROW, MAX_SEG, SCORE_ROWS, SCORE_PAD = 4096, 2048, 2, 357
 # training: 7B_sft at full width, depth cut to 8 layers so that the 18 bytes a
@@ -54,6 +63,12 @@ TRAIN_LAYERS, TRAIN_LR_STEPS = 8, 20
 # embedding and head params and 608.2M a layer, 59 GB of state at 18 bytes a
 # parameter, plus bf16 grads and one micro-batch's activations
 MOE_TRAIN_LAYERS = 4
+# InternLM2 training: 7B_internlm2 at full width, depth cut to 16 layers with
+# every layer recomputed (0.758B embedding and head params and 0.177B a
+# layer: 3.59B params, 64.7 GB of state at 18 bytes a parameter), residual
+# and attention dropout at 0.1; the shipped file sets neither
+INTERNLM2_TRAIN_LAYERS = 16
+INTERNLM2_TRAIN_OVERRIDES = dict(checkpoint=1.0, drop_rate=0.1, attn_drop_rate=0.1)
 # the reference's name for dropless MegaBlocks, which the model routes through
 # the grouped matmul; the config file says "GShard" (capacity routing)
 MOE_TYPE = "MegaBlock-D"
@@ -64,6 +79,7 @@ CLASSES = (
     ("splash_bwd_dkdv", ("splash_bwd_dkdv_kernel",)),
     ("splash_bwd_dq", ("splash_bwd_dq_kernel",)),
     ("fused_adamw", ("adamw_kernel",)),
+    ("dropout", ("dropout_kernel",)),
     ("gmm_dgrad", ("gmm_dgrad_kernel",)),
     ("tgmm", ("tgmm_kernel",)),
     ("gmm", ("gmm_kernel",)),
@@ -128,9 +144,16 @@ def profile(step) -> dict:
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if e.name != remat.PROFILE_LABEL]
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
+    # the recompute's ranges as the device ran them, where the profiler
+    # records them (user annotations on the device timeline)
+    spans = [(e.time_range.start, e.time_range.end) for e in device if e.name == remat.PROFILE_LABEL]
+    recompute_ms = (sum(e.time_range.elapsed_us() for e in kernels
+                        if any(a <= e.time_range.start and e.time_range.end <= b for a, b in spans)) / 1e3
+                    if spans else None)
     by_class: dict = {}
     by_name: dict = {}
     for e in kernels:
@@ -142,6 +165,7 @@ def profile(step) -> dict:
     busy = _union_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"wall_s": wall, "busy_s": busy, "busy_share": busy / wall, "kernels": len(kernels),
+            "recompute_kernel_ms": recompute_ms, "recompute_ranges": len(spans),
             "kernel_ms_by_class": {k: round(v[0], 3) for k, v in sorted(by_class.items(), key=lambda kv: -kv[1][0])},
             "launches_by_class": {k: v[1] for k, v in by_class.items()},
             "top_kernels_ms": [[name[:120], round(ms, 3)] for name, ms in top]}
@@ -163,6 +187,18 @@ def moe_config(num_layers: int | None = None) -> Config:
     config.model.moe_type = MOE_TYPE
     if num_layers is not None:
         config.model.num_layers = num_layers
+    config.lr_scheduler.total_steps = TRAIN_LR_STEPS
+    return config
+
+
+def internlm2_train_config(num_layers: int = INTERNLM2_TRAIN_LAYERS, **overrides) -> Config:
+    """``configs/7B_internlm2.py`` with the depth cut to ``num_layers``,
+    ``INTERNLM2_TRAIN_OVERRIDES`` (then ``overrides``) on its model block,
+    and the 20-step lr schedule."""
+    config = Config.from_file(INTERNLM2_CONFIG)
+    config.model.num_layers = num_layers
+    for k, v in {**INTERNLM2_TRAIN_OVERRIDES, **overrides}.items():
+        config.model[k] = v
     config.lr_scheduler.total_steps = TRAIN_LR_STEPS
     return config
 
@@ -203,7 +239,9 @@ def score_step(config: Config):
 
 
 PATHS = {"train": lambda: train_step(train_config()), "score": lambda: score_step(Config.from_file(CONFIG)),
-         "moe_train": lambda: train_step(moe_config(MOE_TRAIN_LAYERS)), "moe_score": lambda: score_step(moe_config())}
+         "moe_train": lambda: train_step(moe_config(MOE_TRAIN_LAYERS)), "moe_score": lambda: score_step(moe_config()),
+         "internlm2_train": lambda: train_step(internlm2_train_config()),
+         "internlm2_score": lambda: score_step(Config.from_file(INTERNLM2_CONFIG))}
 
 
 def main() -> None:

@@ -21,6 +21,7 @@ from ..core.engine import Engine
 from ..core.scheduler.no_pipeline import make_eval_step, make_train_step
 from ..core.trainer import Trainer
 from ..models.base import ModelDef
+from ..ops.fused_ce import loss_knobs
 from ..solver.lr_scheduler import Beta2Scheduler, build_lr_scheduler
 from ..solver.optimizer import AdamWConfig, GradScalerConfig, init_optimizer_state
 from ..utils.registry import MODEL_INITIALIZER
@@ -84,13 +85,18 @@ def initialize_optimizer(model: ModelDef, params, config: Config) -> tuple[Any, 
 
 
 def initialize_trainer(model: ModelDef, params, opt_state, lr_scheduler, beta2_scheduler,
-                       config: Config) -> Trainer:
+                       config: Config, seed: int = 1024) -> Trainer:
     """The non-pipeline train step, the per-token eval step, and the engine
-    and trainer around them."""
+    and trainer around them.  ``seed`` is the launch seed whose "dropout"
+    stream the train step draws (JAX ``initialize/launch.py:130``); the
+    ``loss`` block's ``save_ce_logits`` and ``ce_chunk_size`` reach the
+    fused CE of both steps."""
     loss = config.get("loss", {})
+    knobs = loss_knobs(loss)
     train_step = make_train_step(model, _adam_cfg(config), _scaler_cfg(config),
                                  label_smoothing=loss.get("label_smoothing", 0),
-                                 moe_loss_coeff=loss.get("moe_loss_coeff", 0.01))
-    eval_step = make_eval_step(model, loss.get("label_smoothing", 0), per_token=True)
+                                 moe_loss_coeff=loss.get("moe_loss_coeff", 0.01), seed=seed, **knobs)
+    eval_step = make_eval_step(model, loss.get("label_smoothing", 0), per_token=True,
+                               chunk_size=knobs["chunk_size"])
     engine = Engine(model, params, opt_state, train_step, lr_scheduler, beta2_scheduler, eval_step)
     return Trainer(engine)

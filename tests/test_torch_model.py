@@ -155,51 +155,42 @@ def test_initialize_model_from_config():
 # ------------------------------------------------------------ config keys
 
 
-@pytest.mark.parametrize("family", ["INTERNLM", "INTERNLM_MoE"])
-@pytest.mark.parametrize("key,value", [("is_reward", True), ("remat_save_mlp", 0.5), ("remat_save_qkv", 1.0),
-                                       ("activation_offload", True)])
-def test_unmodelled_config_keys_are_refused(family, key, value):
-    """A JAX ModelConfig key that would change what the model computes is
-    refused when set, not dropped: ``is_reward`` asks for a 1-wide scalar
-    head, the remat tiers for recompute.  At its JAX default it builds."""
-    from internevo_tpu_torch.utils.registry import MODEL_INITIALIZER
-
-    build = MODEL_INITIALIZER.get_module(family)
-    kw = dict(TINY, num_experts=4, moe_type="MegaBlock-D") if family == "INTERNLM_MoE" else dict(TINY)
-    with pytest.raises(NotImplementedError, match=f"model.{key}="):
-        build(**kw, **{key: value})
-    build(**kw, **{key: jbase.ModelConfig.__dataclass_fields__[key].default})
-
-
-@pytest.mark.parametrize("config,model_type", [("7B_sft.py", "INTERNLM"), ("7B_MoE4_sft.py", "INTERNLM_MoE")])
-def test_shipped_configs_build(config, model_type):
-    """The shipped dense and MoE configs build through the registry with the
-    keys the JAX builders pop (``embed_split_hidden``, ``use_flash_attn``,
-    ...) and the layout-only ``parallel_output``; the MoE config routed
-    dropless, as the chip runs take it."""
+@pytest.mark.parametrize("config,model_type,shape", [
+    ("7B_sft.py", "INTERNLM", (32, 4096, 103168, 32, True)),
+    ("7B_MoE4_sft.py", "INTERNLM_MoE", (32, 4096, 103168, 32, True)),
+    ("7B_internlm2.py", "INTERNLM2_PUBLIC", (32, 4096, 92544, 8, False)),
+    ("7B_llama2.py", "LLAMA2", (32, 4096, 32000, 8, False))])
+def test_shipped_configs_build(config, model_type, shape):
+    """The shipped configs build through the registry under their own
+    ``model_type``, with the keys the JAX builders pop (``embed_split_hidden``,
+    ``use_flash_attn``, ``use_fp32_norm``, ...) and the layout-only
+    ``parallel_output``: layers, width, vocab, kv heads and the wqkv bias (off
+    under ``no_bias``); the MoE config routed dropless, as the chip runs take
+    it."""
     from pathlib import Path
 
     from internevo_tpu_torch.core.config import Config
     from internevo_tpu_torch.utils.registry import MODEL_INITIALIZER
 
     cfg = Config.from_file(Path(__file__).resolve().parents[1] / "configs" / config)
+    assert cfg.get("model_type", "INTERNLM") == model_type
     kw = dict(cfg.model)
     assert {"embed_split_hidden", "use_flash_attn", "num_chunks", "parallel_output"} <= set(kw)
     if model_type == "INTERNLM_MoE":
         kw["moe_type"] = "MegaBlock-D"
-    c = MODEL_INITIALIZER.get_module(model_type)(**kw).config
-    assert (c.num_layers, c.hidden_size, c.vocab_size) == (32, 4096, 103168)
+    c = MODEL_INITIALIZER.get_module(model_type)(**kw, use_fp32_norm=False).config
+    assert (c.num_layers, c.hidden_size, c.vocab_size, c.num_kv_attention_heads, c.qkv_bias) == shape
 
 
 def test_port_config_covers_every_jax_field():
-    """Every field of the JAX ModelConfig is a field of the port's, or one of
-    the port's refused or accepted keys; a refused key's default is JAX's.
-    A field added to the JAX package fails here until the port decides."""
-    port = set(tbase.ModelConfig.__dataclass_fields__)
+    """Every field of the JAX ModelConfig is a field of the port's, with the
+    JAX default, or one of the port's accepted keys.  A field added to the
+    JAX package fails here until the port decides."""
+    port = tbase.ModelConfig.__dataclass_fields__
     jax_fields = jbase.ModelConfig.__dataclass_fields__
-    assert not set(tbase.REFUSED_KEYS) & set(tbase.ACCEPTED_KEYS) and not port & set(tbase.REFUSED_KEYS)
-    assert set(tbase.REFUSED_KEYS) | set(tbase.ACCEPTED_KEYS) <= set(jax_fields)
-    missing = set(jax_fields) - port - set(tbase.REFUSED_KEYS) - set(tbase.ACCEPTED_KEYS)
+    assert not set(port) & set(tbase.ACCEPTED_KEYS) and set(tbase.ACCEPTED_KEYS) <= set(jax_fields)
+    missing = set(jax_fields) - set(port) - set(tbase.ACCEPTED_KEYS)
     assert not missing, f"JAX ModelConfig fields the port neither models nor lists: {sorted(missing)}"
-    for key, (default, _) in tbase.REFUSED_KEYS.items():
-        assert jax_fields[key].default == default, key
+    for key in ("is_reward", "remat_save_mlp", "remat_save_qkv", "activation_offload", "checkpoint",
+                "drop_rate", "attn_drop_rate"):
+        assert port[key].default == jax_fields[key].default, key

@@ -213,7 +213,7 @@ def _port_routing(model, params, batch):
     for i in range(batch["input_ids"].shape[0]):
         micro = {k: v[i] for k, v in batch.items()}
 
-        def block(layer, h):
+        def block(layer, h, key):
             def ffn(hh):
                 probs, _, idx = td.route(layer["moe"]["gate"], hh.reshape(-1, hh.shape[-1]), cfg.top_k)
                 srt = probs.sort(-1, descending=True).values

@@ -89,16 +89,6 @@ def test_opt_state_bridge_round_trip():
         assert np.asarray(a).dtype == np.asarray(b).dtype and np.asarray(a).tobytes() == np.asarray(b).tobytes()
 
 
-@pytest.mark.parametrize("field,value", [("drop_rate", 0.1), ("attn_drop_rate", 0.1), ("checkpoint", True)])
-def test_training_refuses_unported_settings(field, value):
-    cfg = tbase.ModelConfig(**dict(TINY, **{field: value}), dtype=torch.float32)
-    params = tbase.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    ids = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tbase.model_forward(cfg, params, ids, ids, ids, train=True)
-    tbase.model_forward(cfg, params, ids, ids, ids, train=False)  # eval runs as before
-
-
 def _tiny_config():
     from bench import build_bench_config, build_full_config
 

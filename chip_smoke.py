@@ -93,8 +93,32 @@ the run with a non-zero exit:
                  micro-batch), finite norms, a falling loss, peak memory,
                  and the step's time by kernel class and in the recompute
                  (``tools/profile_step.py::profile``).
+20. gshard_scoring  ``configs/7B_MoE4_sft.py`` as the file stands (GShard
+                 capacity routing, top-2, eval capacity factor 1) at full
+                 width and depth scores phase 4's packed rows through
+                 ``make_eval_step``: one splash forward a layer, no grouped
+                 matmul, the share of routed slots each layer dropped, and
+                 the loss held against a forward with the plain attention;
+21. gshard_grads the same file at 2 layers, in training under one key (the
+                 top-2 gumbel noise and RTS on): grads and aux loss through
+                 the kernels against the plain attention, the share of
+                 tokens whose (expert, slot) routing agrees, and a planted
+                 fault (each layer drawing the next layer's key) the check
+                 must refuse;
+22. entry_training  the entry point's loop (``train/main.py::run_training``)
+                 in-process on the same file with the depth cut to 4 layers
+                 and ``data.total_steps`` to 6: the shipped data path
+                 (``RandomDataset`` -> ``PackedDatasetWithCut`` -> sampler ->
+                 collater, a prefetch thread), GShard routing with the
+                 gumbel noise folded from the applied step; tokens/s,
+                 activated MFU, peak memory, losses, launches a step and the
+                 seconds a step the loop waited for its batch.
 
-Then a ``{"kernels": [...]}`` line and, last, the run's verdict line.  With no
+An argument ``--only phase[,phase]`` runs the device and build phases and
+then only the named phases of 20-22 (for a first call after a change to
+them); with no argument every phase runs.
+
+Then a ``{"kernels": [...]}`` line ``{"kernels": [...]}`` line and, last, the run's verdict line.  With no
 CUDA device the script exits non-zero before printing any result.  It imports
 nothing of JAX.
 """
@@ -123,15 +147,18 @@ from internevo_tpu_torch.core.config import Config
 from internevo_tpu_torch.core.scheduler.no_pipeline import make_eval_step
 from internevo_tpu_torch.models.base import block_forward, make_model_def
 from internevo_tpu_torch.models.modeling_moe import moe_ffn
-from internevo_tpu_torch.models.moe import dropless
+from internevo_tpu_torch.models.moe import dropless, gshard
+from internevo_tpu_torch.ops.attention import flash_attention
 from internevo_tpu_torch.ops.cuda import build, dropout, fused_adamw, gmm
 from internevo_tpu_torch.ops.cuda import splash_attention as splash
 from internevo_tpu_torch.ops.fused_ce import fused_norm_head_ce
 from internevo_tpu_torch.solver.optimizer import tree_leaves
 from internevo_tpu_torch.tools import profile_step
-from internevo_tpu_torch.tools.profile_step import (INTERNLM2_CONFIG, internlm2_train_config, moe_config,
+from internevo_tpu_torch.tools.profile_step import (INTERNLM2_CONFIG, gshard_config, internlm2_train_config,
+                                                    moe_config,
                                                     moe_train_setup, packed_batch, packed_segments, train_config,
                                                     train_setup)
+from internevo_tpu_torch.train.main import run_training
 from internevo_tpu_torch.train.pipeline import initialize_model
 from internevo_tpu_torch.utils.common import (device_peak_bandwidth, device_peak_tflops,
                                               get_megatron_flops)
@@ -251,6 +278,25 @@ REMAT_TIERS = {"checkpoint_0": dict(checkpoint=0.0), "checkpoint_1": dict(checkp
 REMAT_GRAD_MAX_ABS = 0.0
 # internlm2_serving: two greedy requests
 INTERNLM2_GREEDY = (64, 300)
+# gshard_grads: 2 layers of the shipped MoE file in training under one key.
+# Routing is discontinuous: the random gate (std 0.006) leaves near-ties
+# that the attention's bf16 rounding flips, and one token routed otherwise
+# moves the slots of every later token of its expert (a free plain run
+# agreed on (expert, slot) for 6.3% and 1.3% of the tokens of layers 0 and
+# 1, on the experts for 99.7% and 99.3%, on an H100).  So every param grad
+# (relative L2 per leaf) and the aux loss (relative) are held with the plain
+# run routed as the kernel run was: grads at the script's bf16 grad level
+# GRAD_REL_L2 (the sound reading 1.01e-2; the kernels are deterministic, so
+# it repeats), the aux loss 10x its sound 2.9e-6.  The free run's routing is
+# held by the share of tokens sent to other experts, 10x the sound 7.3e-3.
+# The planted fault (each layer drawing the next layer's key) redraws the
+# gumbel noise of every second choice: 65% of the tokens went elsewhere
+GSHARD_LAYERS = 2
+GSHARD_GRAD_REL_L2 = GRAD_REL_L2
+GSHARD_AUX_REL = 3e-5
+GSHARD_ROUTE_DISAGREE = 7.3e-2
+# entry_training: the shipped MoE file, cut only where one card forces it
+ENTRY_LAYERS, ENTRY_STEPS, ENTRY_SEED = 4, 6, 1024
 
 
 def emit(obj) -> None:
@@ -509,18 +555,23 @@ def plain_block(cfg, batch, train=False):
     return block
 
 
+def scoring_rows(vocab: int, dev) -> dict:
+    """Phase 4's two packed rows of 4096 tokens (357 padding tokens a row)."""
+    rng = np.random.RandomState(SEED + 1)
+    seg, pos = packed_segments(SCORE_B, SCORE_S, MAX_SEG, PAD, rng)
+    labels = rng.randint(0, vocab, (SCORE_B, SCORE_S))
+    labels[:, SCORE_S - PAD:] = -100
+    return {"input_ids": torch.from_numpy(rng.randint(0, vocab, (SCORE_B, SCORE_S))).to(dev),
+            "indexes": torch.from_numpy(pos).to(dev), "segment_ids": torch.from_numpy(seg).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)}
+
+
 def phase_scoring(model, params, dev, phase="scoring", source="configs/7B_sft.py"):
     """``source``'s model scores two packed rows of 4096 tokens through
     ``make_eval_step``, plain and per token; one splash forward a layer,
     and the loss held against a forward with the plain attention."""
     cfg = model.config
-    rng = np.random.RandomState(SEED + 1)
-    seg, pos = packed_segments(SCORE_B, SCORE_S, MAX_SEG, PAD, rng)
-    labels = rng.randint(0, cfg.vocab_size, (SCORE_B, SCORE_S))
-    labels[:, SCORE_S - PAD:] = -100
-    batch = {"input_ids": torch.from_numpy(rng.randint(0, cfg.vocab_size, (SCORE_B, SCORE_S))).to(dev),
-             "indexes": torch.from_numpy(pos).to(dev), "segment_ids": torch.from_numpy(seg).to(dev),
-             "labels": torch.from_numpy(labels).to(dev)}
+    batch = scoring_rows(cfg.vocab_size, dev)
     n_valid = SCORE_B * (SCORE_S - PAD)
     step = make_eval_step(model)
     step_tok = make_eval_step(model, per_token=True)
@@ -1116,11 +1167,12 @@ def gmm_counts() -> tuple:
     return gmm.launches_gmm, gmm.launches_gmm_dgrad, gmm.launches_tgmm
 
 
-def moe_loss_of(model, params, batch, block_fn, moe_loss_coeff, train=False):
-    """(CE + moe_loss_coeff * aux, CE) over ``batch`` through ``block_fn``."""
+def moe_loss_of(model, params, batch, block_fn, moe_loss_coeff, train=False, dropout_rng=None):
+    """(CE + moe_loss_coeff * aux, CE) over ``batch`` through ``block_fn``
+    (the model's own block if None), the layers' keys from ``dropout_rng``."""
     cfg = model.config
     hidden, aux = model.apply(params, batch["input_ids"], batch["indexes"], batch["segment_ids"], train=train,
-                              block_fn=block_fn, return_hidden=True)
+                              block_fn=block_fn, return_hidden=True, dropout_rng=dropout_rng)
     nll, n, _ = fused_norm_head_ce(hidden, params["norm"], params["head"]["weight"], batch["labels"],
                                    eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale)
     ce = nll / n
@@ -1179,13 +1231,7 @@ def phase_moe_scoring(dev, config=None):
     torch.cuda.reset_peak_memory_stats()
     model, params = initialize_model(config, dev, torch.Generator(device=dev).manual_seed(SEED))
     cfg = model.config
-    rng = np.random.RandomState(SEED + 1)
-    seg, pos = packed_segments(SCORE_B, SCORE_S, MAX_SEG, PAD, rng)
-    labels = rng.randint(0, cfg.vocab_size, (SCORE_B, SCORE_S))
-    labels[:, SCORE_S - PAD:] = -100
-    batch = {"input_ids": torch.from_numpy(rng.randint(0, cfg.vocab_size, (SCORE_B, SCORE_S))).to(dev),
-             "indexes": torch.from_numpy(pos).to(dev), "segment_ids": torch.from_numpy(seg).to(dev),
-             "labels": torch.from_numpy(labels).to(dev)}
+    batch = scoring_rows(cfg.vocab_size, dev)
     n_valid = SCORE_B * (SCORE_S - PAD)
     step = make_eval_step(model)
     step_tok = make_eval_step(model, per_token=True)
@@ -1566,10 +1612,284 @@ def phase_internlm2_training(dev):
     return dict(zip(("fwd", "dkdv", "dq", "dropout", "adamw"), total))
 
 
-def main() -> int:
+class GateRecord:
+    """While active, wraps ``gshard.top2gating`` to keep each call's routed
+    slots: the count kept (a device scalar) and, with ``masks``, the
+    dispatch mask (s, E, C)."""
+
+    def __init__(self, masks: bool = False):
+        self.masks, self.kept, self.dispatch = masks, [], []
+
+    def __enter__(self):
+        self._top2 = gshard.top2gating
+
+        def top2(*args, **kwargs):
+            out = self._top2(*args, **kwargs)
+            self.kept.append(out[2].sum())
+            if self.masks:
+                self.dispatch.append(out[2].detach())
+            return out
+
+        gshard.top2gating = top2
+        return self
+
+    def __exit__(self, *exc):
+        gshard.top2gating = self._top2
+
+
+def gshard_block(cfg, batch, train, attention_fn=flash_attention, next_key=None):
+    """A ``block_fn`` for the GShard model: its block with ``attention_fn``
+    (the kernel path by default), the gate drawing from the layer's key or,
+    with ``next_key``, from the key that map gives for it."""
+    def block(layer, h, key):
+        key = next_key[key] if next_key is not None else key
+        return block_forward(cfg, layer, h, batch["indexes"], batch["segment_ids"], key, train,
+                             ffn=lambda hh: moe_ffn(cfg, layer, hh, key=key, train=train), attention_fn=attention_fn)
+    return block
+
+
+def phase_gshard_scoring(dev, config=None):
+    """``configs/7B_MoE4_sft.py`` as the file stands, full width and depth,
+    scores phase 4's packed rows through ``make_eval_step``: one splash
+    forward a layer and no grouped matmul, the share of routed slots each
+    layer's capacity dropped, and the loss against the plain attention."""
+    config = config if config is not None else gshard_config()
+    torch.cuda.reset_peak_memory_stats()
+    model, params = initialize_model(config, dev, torch.Generator(device=dev).manual_seed(SEED))
+    cfg = model.config
+    L, S = cfg.num_layers, SCORE_B * SCORE_S
+    batch = scoring_rows(cfg.vocab_size, dev)
+    step = make_eval_step(model)
+    zero_counts()
+    with GateRecord() as rec:
+        r = step(params, batch)
+    torch.cuda.synchronize()
+    launched = (splash.launches, *gmm_counts())
+    kept = [int(k) for k in rec.kept]
+    dropped = [1.0 - k / (cfg.top_k * S) for k in kept]
+    loss = float(r["loss"])
+    seconds = cuda_time_ms(lambda: step(params, batch), warmup=1, reps=3) / 1e3
+    fwd_tflops = get_megatron_flops(seconds, seq_len=SCORE_S, hidden_size=cfg.hidden_size, num_layers=L,
+                                    vocab_size=cfg.vocab_size, global_batch_size=SCORE_B,
+                                    mlp_ratio=cfg.mlp_ratio * cfg.top_k) / 3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        _, ce_plain = moe_loss_of(model, params, batch, gshard_block(cfg, batch, False, plain_attention),
+                                  config.loss.moe_loss_coeff)
+    gap = abs(loss - float(ce_plain))
+    capacity = gshard._capacity(S, cfg.num_experts, 2 * cfg.moe_eval_capacity_factor, cfg.moe_min_capacity)
+    emit({"phase": "gshard_scoring", "model": "configs/7B_MoE4_sft.py (unmodified: GShard)", "layers": L,
+          "hidden": cfg.hidden_size, "experts": cfg.num_experts, "top_k": cfg.top_k,
+          "eval_capacity_factor": cfg.moe_eval_capacity_factor, "capacity": capacity,
+          "params": sum(p.numel() for p in tree_leaves(params)), "tokens": S,
+          "valid_tokens": int(r["n_tokens"]), "loss": loss, "loss_plain_attention": float(ce_plain), "gap": gap,
+          "gap_bound": LOSS_GAP, "dropped_share_by_layer": dropped, "dropped_share_mean": float(np.mean(dropped)),
+          "step_s": seconds, "tokens_per_s": S / seconds, "fwd_tflops_activated": fwd_tflops,
+          "mfu": fwd_tflops / device_peak_tflops(),
+          "mfu_counts": "get_megatron_flops / 3 with mlp_ratio * top_k (bench.py:73-81); the dense dispatch and "
+                        "combine products are not counted",
+          "peak_memory_gb": peak, "launches_fwd_gmm_dgrad_tgmm": list(launched)})
+    if cfg.top_k != 2 or launched != (L, 0, 0, 0) or len(kept) != L:
+        raise AssertionError(f"launches {launched}, gating calls {len(kept)}: want {L} splash forwards and "
+                             f"{L} top-2 gating calls, no grouped matmul")
+    if not math.isfinite(loss) or not gap <= LOSS_GAP:
+        raise AssertionError(f"GShard scoring loss {loss} vs plain attention {float(ce_plain)}")
+    del model, params, batch
+    return launched[0]
+
+
+class ChoiceRecord:
+    """While active, wraps ``gshard._first_max`` (the gate's argmax choices)
+    to keep each call's expert ids in call order, or, with ``replay``, to
+    return those of another run instead: the same routing for both runs."""
+
+    def __init__(self, replay=None):
+        self.replay, self.choices = replay, []
+
+    def __enter__(self):
+        self._first_max = gshard._first_max
+        replay = iter(self.replay) if self.replay is not None else None
+
+        def first_max(x):
+            idx = next(replay) if replay is not None else self._first_max(x)
+            self.choices.append(idx)
+            return idx
+
+        gshard._first_max = first_max
+        return self
+
+    def __exit__(self, *exc):
+        gshard._first_max = self._first_max
+
+
+def routing_agreement(got: list, want: list) -> dict:
+    """Per layer, the share of tokens routed alike in two runs' dispatch
+    masks (s, E, C): to the same (expert, slot) pairs, and to the same
+    experts (a token dropped by one run's capacity counts as routed
+    otherwise)."""
+    return {"expert_slot": [float((a == b).flatten(1).all(1).float().mean()) for a, b in zip(got, want)],
+            "experts": [float((a.any(-1) == b.any(-1)).all(1).float().mean()) for a, b in zip(got, want)]}
+
+
+def phase_gshard_grads(dev):
+    """The shipped MoE file at ``GSHARD_LAYERS`` layers, one packed row in
+    training under one key (top-2 gumbel noise and RTS on), through the
+    kernels and through the plain attention.  Routing is discontinuous, so
+    the grads and the aux loss are held with the plain run routed as the
+    kernel run was (the gate's choices replayed; ``GSHARD_GRAD_REL_L2``,
+    ``GSHARD_AUX_REL``), and the routing of a free plain run against the
+    kernel run's (``GSHARD_ROUTE_DISAGREE``).  A planted fault, each layer
+    drawing the next layer's key, must break the routing bound."""
+    config = gshard_config(GSHARD_LAYERS)
+    model, params = initialize_model(config, dev, torch.Generator(device=dev).manual_seed(SEED + 15))
+    cfg, coeff = model.config, config.loss.moe_loss_coeff
+    L = cfg.num_layers
+    batch = packed_batch((TRAIN_B,), TRAIN_S, 0, cfg.vocab_size, np.random.RandomState(SEED + 15), dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    key = micro_key()
+
+    def grads(block_fn, replay=None):
+        with GateRecord(masks=True) as rec, ChoiceRecord(replay) as ch:
+            hidden, aux = model.apply(params, batch["input_ids"], batch["indexes"], batch["segment_ids"],
+                                      dropout_rng=key, train=True, block_fn=block_fn, return_hidden=True)
+            nll, n, _ = fused_norm_head_ce(hidden, params["norm"], params["head"]["weight"], batch["labels"],
+                                           eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale)
+            (nll / n + coeff * aux["moe"]).backward()
+        out = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return {"aux": float(aux["moe"].detach()), "grads": out, "dispatch": rec.dispatch, "choices": ch.choices}
+
+    def disagree(agree: dict) -> float:
+        return 1.0 - min(agree["experts"])
+
+    zero_counts()
+    kernel = grads(None)
+    torch.cuda.synchronize()
+    launched = list(kernel_counts()[:3])
+    same = grads(gshard_block(cfg, batch, True, plain_attention), replay=kernel["choices"])
+    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+           for a, b in zip(kernel["grads"], same["grads"])]
+    sound = {"max_rel_l2": max(rel), "worst_leaf": int(np.argmax(rel)), "median_rel_l2": float(np.median(rel)),
+             "aux_rel": abs(kernel["aux"] - same["aux"]) / abs(same["aux"]),
+             "replayed_routing": routing_agreement(kernel["dispatch"], same["dispatch"]),
+             "finite": all(bool(torch.isfinite(a.float()).all()) for a in kernel["grads"])}
+    del same
+    free = grads(gshard_block(cfg, batch, True, plain_attention))
+    sound["routing_plain_vs_kernel"] = routing_agreement(free["dispatch"], kernel["dispatch"])
+    sound["aux_rel_free"] = abs(kernel["aux"] - free["aux"]) / abs(free["aux"])
+    del free
+    next_key = {jrandom.fold_in(key, i): jrandom.fold_in(key, i + 1) for i in range(L)}
+    fault = grads(gshard_block(cfg, batch, True, next_key=next_key))
+    planted = {"routing_vs_kernel": routing_agreement(fault["dispatch"], kernel["dispatch"]),
+               "aux_rel": abs(fault["aux"] - kernel["aux"]) / abs(kernel["aux"])}
+    del fault
+    held = (sound["finite"] and sound["max_rel_l2"] <= GSHARD_GRAD_REL_L2 and sound["aux_rel"] <= GSHARD_AUX_REL
+            and min(sound["replayed_routing"]["expert_slot"]) == 1.0
+            and disagree(sound["routing_plain_vs_kernel"]) <= GSHARD_ROUTE_DISAGREE)
+    refused = disagree(planted["routing_vs_kernel"]) > GSHARD_ROUTE_DISAGREE
+    emit({"phase": "gshard_grads", "model": "configs/7B_MoE4_sft.py (unmodified: GShard), train, one key",
+          "layers": L, "tokens": TRAIN_S, "leaves": len(leaves), "aux_kernel": kernel["aux"],
+          "bounds": {"rel_l2": GSHARD_GRAD_REL_L2, "aux_rel": GSHARD_AUX_REL,
+                     "routing_disagree_experts": GSHARD_ROUTE_DISAGREE},
+          "kernel_vs_plain": sound, "held": held, "planted_next_layer_key": planted, "planted_refused": refused,
+          "launches_fwd_dkdv_dq": launched})
+    if launched != [L, L, L]:
+        raise AssertionError(f"launches {launched}, want {[L, L, L]}")
+    if not held:
+        raise AssertionError(f"GShard grads or routing through the kernels vs plain attention: {sound}")
+    if not refused:
+        raise AssertionError(f"the GShard check let the next layer's key through: {planted}")
+    del model, params, leaves, kernel
+
+
+def phase_entry_training(dev):
+    """The entry point's loop in-process (``train/main.py::run_training``)
+    on ``configs/7B_MoE4_sft.py`` with the depth cut to ``ENTRY_LAYERS`` and
+    ``data.total_steps`` to ``ENTRY_STEPS``, the rest as the file stands."""
+    config = gshard_config(ENTRY_LAYERS)
+    cut = {"model.num_layers": f"32 -> {ENTRY_LAYERS}",
+           "data.total_steps": f"{config.data.total_steps} -> {ENTRY_STEPS}"}
+    config.data.total_steps = ENTRY_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = run_training(config, device=dev, seed=ENTRY_SEED)
+    torch.cuda.synchronize()
+    total = (*kernel_counts(), *gmm_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cfg, data, recs = out["model"].config, out["config"].data, out["records"]
+    L, steps = cfg.num_layers, len(recs)
+    leaves = len(tree_leaves(out["engine"].params))
+    n_params = sum(p.numel() for p in tree_leaves(out["engine"].params))
+    tokens = data.micro_num * data.micro_bsz * data.seq_len
+    per_step = [c / steps for c in total]
+    want = [L * data.micro_num] * 3 + [0, leaves, 0, 0, 0]
+    losses = [r["loss"] for r in recs]
+    step_s = float(np.median([r["time_cost"] for r in recs[1:]]))
+    tflops = get_megatron_flops(step_s, seq_len=data.seq_len, hidden_size=cfg.hidden_size, num_layers=L,
+                                vocab_size=cfg.vocab_size, global_batch_size=data.micro_num * data.micro_bsz,
+                                mlp_ratio=cfg.mlp_ratio * cfg.top_k)
+    emit({"phase": "entry_training", "model": "configs/7B_MoE4_sft.py", "cut": cut, "layers": L,
+          "routing": {"moe_type": cfg.moe_type, "top_k": cfg.top_k, "capacity_factor": cfg.moe_capacity_factor,
+                      "use_rts": cfg.moe_use_rts, "noisy_gate_policy": cfg.moe_noisy_gate_policy},
+          "data_path": "RandomDataset -> PackedDatasetWithCut -> StaticBatchSampler -> packed_collate_fn",
+          "micro_num": data.micro_num, "micro_bsz": data.micro_bsz, "packed_length": data.packed_length,
+          "params": n_params, "state_gb_at_18_bytes": 18 * n_params / 1e9, "leaves": leaves,
+          "setup_s": out["setup_s"], "steps": steps, "losses": losses,
+          "moe_losses": [r["moe_loss"] for r in recs], "grad_norms": [r["grad_norm"] for r in recs],
+          "lrs": [r["lr"] for r in recs], "step_s": [r["time_cost"] for r in recs],
+          "step_s_median_2_6": step_s, "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+          "tflops_activated": tflops, "mfu": tflops / device_peak_tflops(),
+          "load_wait_s": out["load_wait_s"], "load_wait_s_median": float(np.median(out["load_wait_s"])),
+          "peak_memory_gb": peak, "launches_a_step_fwd_dkdv_dq_dropout_adamw_gmm_dgrad_tgmm": per_step})
+    if steps != ENTRY_STEPS or per_step != want:
+        raise AssertionError(f"{steps} steps, launches a step {per_step}: want {ENTRY_STEPS} and {want}")
+    # each step scores a fresh batch, so a step may read above the one before
+    # it; the last must read below the first
+    if not all(math.isfinite(x) for x in losses + [r["grad_norm"] for r in recs]) or not losses[-1] < losses[0]:
+        raise AssertionError(f"entry training losses {losses}")
+    if not all(r["success_update"] for r in recs) or any(r["real_tokens"] <= 0 for r in recs):
+        raise AssertionError(f"a skipped step or an empty batch: {recs}")
+    del out
+    return dict(zip(("fwd", "dkdv", "dq"), total[:3]), adamw=total[4])
+
+
+GSHARD_PHASES = ("gshard_scoring", "gshard_grads", "entry_training")
+
+
+def run_gshard_phases(dev, only=GSHARD_PHASES) -> dict:
+    out = {}
+    if "gshard_scoring" in only:
+        out["gshard_scoring"] = phase_gshard_scoring(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "gshard_grads" in only:
+        phase_gshard_grads(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "entry_training" in only:
+        out["entry_training"] = phase_entry_training(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or not set(argv[1].split(",")) <= set(GSHARD_PHASES):
+            raise SystemExit(f"usage: chip_smoke.py [--only {','.join(GSHARD_PHASES)}]")
+        only = tuple(argv[1].split(","))
     phase_device()
     dev = torch.device("cuda")
     phase_build(dev)
+    if only is not None:
+        run_gshard_phases(dev, only)
+        emit({"only": list(only), "ok": True})
+        return 0
     kernel = phase_kernel(dev)
     torch.cuda.empty_cache()
 
@@ -1616,6 +1936,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     internlm2 = phase_internlm2_training(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gshard_run = run_gshard_phases(dev)
+    entry = gshard_run["entry_training"]
 
     gmm_source = f"internevo_tpu_torch/csrc/{gmm.SOURCE}"
     bwd_source = f"internevo_tpu_torch/csrc/{splash.BWD_SOURCE}"
@@ -1629,18 +1953,21 @@ def main() -> int:
         {"name": "splash_attention_fwd", "route": "cuda", "source": f"internevo_tpu_torch/csrc/{splash.SOURCE}",
          "replaces": "internevo_tpu/ops/pallas/splash_attention.py:558 (_fwd_kernel_bsd), :457 (_fwd_kernel)",
          "launches": launches, "launches_training": trained["fwd"], "launches_internlm2_scoring": internlm2_scored,
-         "launches_internlm2_training": internlm2["fwd"], "max_abs_err": kernel["max_err_out"],
+         "launches_internlm2_training": internlm2["fwd"], "launches_gshard_scoring": gshard_run["gshard_scoring"],
+         "launches_entry_training": entry["fwd"], "max_abs_err": kernel["max_err_out"],
          "max_err_lse": kernel["max_err_lse"], "ms": kernel["kernel_ms"], "wrapper_ms": kernel["wrapper_ms"],
          "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
          "library_ms": kernel["library_ms"], "library_flex_ms": kernel["library_flex_ms"]},
         {"name": "splash_attention_bwd_dkdv", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,
-         "launches": trained["dkdv"], "launches_internlm2_training": internlm2["dkdv"], **bwd["dkdv"],
+         "launches": trained["dkdv"], "launches_internlm2_training": internlm2["dkdv"],
+         "launches_entry_training": entry["dkdv"], **bwd["dkdv"],
          **bwd_common},
         {"name": "splash_attention_bwd_dq", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,
-         "launches": trained["dq"], "launches_internlm2_training": internlm2["dq"], **bwd["dq"], **bwd_common},
+         "launches": trained["dq"], "launches_internlm2_training": internlm2["dq"],
+         "launches_entry_training": entry["dq"], **bwd["dq"], **bwd_common},
         {"name": "fused_adamw", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/fused_adamw.py",
          "replaces": "internevo_tpu/ops/pallas/fused_adamw.py:37 (_kernel)", "launches": trained["adamw"],
-         "launches_internlm2_training": internlm2["adamw"], **adamw},
+         "launches_internlm2_training": internlm2["adamw"], "launches_entry_training": entry["adamw"], **adamw},
         {"name": "dropout", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/dropout.py",
          "replaces": "internevo_tpu/models/base.py:412 (dropout: jax.random.bernoulli, no TPU kernel)",
          "launches": internlm2["dropout"], **dropout_kernel},

@@ -68,9 +68,10 @@ def _shape(shape) -> tuple[int, ...]:
     return (shape,) if isinstance(shape, int) else tuple(shape)
 
 
-def bits(key: Key, shape: int | Sequence[int] = (), device="cpu") -> torch.Tensor:
+def bits(key: Key, shape: int | Sequence[int] = (), *, device) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: uint32 values in an int64
-    tensor on ``device``."""
+    tensor on ``device``, which the caller names (a draw on the wrong device
+    would be copied silently)."""
     shape = _shape(shape)
     n = math.prod(shape)
     out = torch.empty(n, dtype=torch.int64, device=device)
@@ -94,13 +95,13 @@ def uniform_from_bits(b: torch.Tensor) -> torch.Tensor:
     return (b >> 9).to(torch.float32) * 2.0**-23
 
 
-def uniform(key: Key, shape: int | Sequence[int] = (), minval: float = 0.0, maxval: float = 1.0,
-            device="cpu") -> torch.Tensor:
+def uniform(key: Key, shape: int | Sequence[int] = (), minval: float = 0.0, maxval: float = 1.0, *,
+            device) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``.  XLA
     contracts ``u * (maxval - minval) + minval`` into one fused multiply-add;
     the product of two float32 values is exact in float64, so the sum is
     formed there and rounded once to float32."""
-    u = uniform_from_bits(bits(key, shape, device))
+    u = uniform_from_bits(bits(key, shape, device=device))
     if (minval, maxval) == (0.0, 1.0):
         return u
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
@@ -108,7 +109,7 @@ def uniform(key: Key, shape: int | Sequence[int] = (), minval: float = 0.0, maxv
     return torch.maximum(lo, (u.double() * width.double() + lo.double()).float())
 
 
-def bernoulli(key: Key, p: float = 0.5, shape: int | Sequence[int] = (), device="cpu") -> torch.Tensor:
+def bernoulli(key: Key, p: float = 0.5, shape: int | Sequence[int] = (), *, device) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
     the float32 uniform below float32(p)."""
     return uniform(key, shape, device=device) < torch.tensor(p, dtype=torch.float32, device=device)

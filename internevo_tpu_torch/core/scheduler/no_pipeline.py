@@ -7,12 +7,13 @@ positions), ``segment_ids`` and ``labels`` (-100 ignored); a train batch has
 a leading micro axis, (micro_num, B, S).  Eval steps run under
 ``torch.inference_mode()``, without dropout; train steps under autograd.
 
-A model with residual or attention dropout draws JAX's stream: ``rng(seed,
-"dropout")`` folded by the optimizer's count of applied steps, then by the
-micro-batch index (``internevo_tpu/core/scheduler/no_pipeline.py:98-127``);
-the model folds in the layer.  The JAX step also counts an MoE model with
-two or more experts a token as stochastic; the port's dropless routing reads
-no key, so only dropout does.
+A stochastic model draws JAX's stream: ``rng(seed, "dropout")`` folded by
+the optimizer's count of applied steps, then by the micro-batch index
+(``internevo_tpu/core/scheduler/no_pipeline.py:98-127``); the model folds in
+the layer.  It is stochastic, as in JAX, with residual or attention dropout,
+or as an MoE model whose gate needs noise: RTS, top-2 (the gumbel on the
+second choice) or a noise policy.  Dropless routing reads no key, but the
+step counts it as JAX does.
 """
 
 from __future__ import annotations
@@ -78,14 +79,18 @@ def make_train_step(model: ModelDef, adam_cfg: AdamWConfig, scaler_cfg: GradScal
     fp32 accumulators and dropped, so one micro-batch's grads live at a time.
     Then one ``optimizer_step`` updates params and state in place.
 
-    With dropout, the stream folds the optimizer's count of applied steps
+    A stochastic step's stream folds the optimizer's count of applied steps
     (``opt_state["step"]``, which a skipped step does not advance), read
     from the device at the start of the step: one wait for the previous
     step a step.  A caller that already holds that count as a host int may
     pass it as ``step``.  ``save_logits`` and ``chunk_size`` are the fused
     CE's knobs (``ops/fused_ce.py::loss_knobs``)."""
     cfg = model.config
-    stochastic = cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0
+    # the MoE gate needs noise with RTS (top-1), the gumbel of the second
+    # choice (top-2) or a noise policy (JAX no_pipeline.py:98-103)
+    moe_stochastic = cfg.num_experts > 1 and (cfg.moe_use_rts or cfg.top_k >= 2
+                                              or cfg.moe_noisy_gate_policy is not None)
+    stochastic = cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0 or moe_stochastic
     base_rng = jrandom.rng(seed, "dropout") if stochastic else None
 
     def train_step(params, opt_state, batch, lr, beta2, step: int | None = None):

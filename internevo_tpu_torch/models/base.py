@@ -90,14 +90,18 @@ class ModelConfig:
     ffn_other_init_std: float = 0.0015
     out_head_init_std: float = 0.0052
     no_bias: bool = False
-    # MoE knobs that dropless routing reads (used by modeling_moe; the JAX
-    # ModelConfig's, models/base.py:116-128).  The capacity and noise knobs
-    # come with the GShard routing that reads them
+    # MoE knobs (used by modeling_moe; the JAX ModelConfig's,
+    # models/base.py:116-128)
     num_experts: int = 1
     top_k: int = 2
     num_shared_experts: int = 0
+    moe_capacity_factor: float = 1.0
+    moe_eval_capacity_factor: float = 1.0
+    moe_min_capacity: int = 4
     moe_drop_tokens: bool = True
+    moe_use_rts: bool = True
     moe_type: str = "GShard"  # GShard (capacity) | Dropless / MegaBlock-D (grouped matmul)
+    moe_noisy_gate_policy: Optional[str] = None  # None | "RSample" | "Jitter" (ref gshard top1)
 
     def __post_init__(self):
         # config files may say checkpoint=True/False (ref 7B_sft.py comment)
@@ -137,11 +141,6 @@ ACCEPTED_KEYS = {
     "use_swiglu": "read by no JAX model: the MLP is always SwiGLU",
     "moe_gate_noise": "read by nothing in the JAX package",
     "moe_layer_freq": "read by nothing in the JAX package",
-    "moe_capacity_factor": "GShard capacity routing only, which the port refuses",
-    "moe_eval_capacity_factor": "GShard capacity routing only, which the port refuses",
-    "moe_min_capacity": "GShard capacity routing only, which the port refuses",
-    "moe_use_rts": "GShard capacity routing only, which the port refuses",
-    "moe_noisy_gate_policy": "GShard capacity routing only, which the port refuses",
 }
 
 
@@ -420,11 +419,12 @@ def remat_policies(cfg: ModelConfig, moe: bool = False) -> list[Optional[remat.P
 
 
 def layer_plan(cfg: ModelConfig, blocks: list, dropout_rng: Optional[jrandom.Key], train: bool,
-               moe: bool = False):
+               moe: bool = False, keyed: bool = False):
     """(layer, key, policy) for each layer: its params, its key
-    ``fold_in(dropout_rng, i)`` while dropout is active (``train``, a key,
-    and a rate above 0; else None) and its recompute policy."""
-    active = train and dropout_rng is not None and (cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0)
+    ``fold_in(dropout_rng, i)`` while the layer draws (``train``, a key, and
+    a dropout rate above 0 or ``keyed``, a layer whose gate draws noise;
+    else None) and its recompute policy."""
+    active = train and dropout_rng is not None and (cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0 or keyed)
     for i, (layer, policy) in enumerate(zip(blocks, remat_policies(cfg, moe))):
         yield layer, (jrandom.fold_in(dropout_rng, i) if active else None), policy
 

@@ -7,11 +7,14 @@ reference ``moe/moe.py:66-99``).  The apply function returns ``(logits or
 hidden, {"moe": l_aux summed over the layers})``; the train step adds
 ``moe_loss_coeff * moe`` to the CE loss.
 
-Routing is dropless (``models/moe/dropless.py``, the grouped-matmul kernels):
-``moe_type`` "Dropless", "MegaBlock-D" or "MegaBlock", or ``moe_drop_tokens``
-false, as in the JAX model.  The GShard capacity routing
-(``internevo_tpu/models/moe/gshard.py``) is not ported yet, and a config
-that asks for it is refused when the model is built.
+Routing as the JAX model's (``modeling_moe.py:110-146``): dropless
+(``models/moe/dropless.py``, the grouped-matmul kernels) for ``moe_type``
+"Dropless", "MegaBlock-D" or "MegaBlock", or ``moe_drop_tokens`` false;
+otherwise GShard capacity routing (``models/moe/gshard.py``) with the train
+or eval capacity factor, RTS and, in training, the noise policy.  The GShard
+gate draws its noise from the layer's key, ``fold_in(dropout_rng, i)``, the
+key dropout uses, which the layer gets in training whatever the dropout
+rates.
 
 Layer params: the dense block's (``models/base.py``, without w1/w2/w3 when
 every FFN is experts) and ``layer["moe"]`` in the JAX layout, unstacked:
@@ -33,6 +36,7 @@ from ..core import random as jrandom
 from .base import (ModelConfig, ModelDef, _dense, _normal, block_forward, config_from_kwargs, embed_tokens,
                    head_logits, init_params, layer_plan, run_layer)
 from .moe.dropless import dropless_moe_apply
+from .moe.gshard import moe_layer_apply
 
 MODEL_TYPE = "INTERNLM_MoE"
 DROPLESS_TYPES = ("dropless", "megablock-d", "megablock")
@@ -83,10 +87,22 @@ def _residual_branch(cfg: ModelConfig, layer: dict, h, out):
     return out * coef[..., 0:1].to(out.dtype) + dense_out * coef[..., 1:].to(out.dtype)
 
 
-def moe_ffn(cfg: ModelConfig, layer: dict, h, grouped_dot: Optional[Callable] = None):
-    """The MoE FFN of one block: (out, l_aux).  ``grouped_dot`` replaces the
-    grouped matmul (a check holds the kernels against the plain path)."""
-    out, l_aux, _ = dropless_moe_apply(layer["moe"], h, top_k=cfg.top_k, grouped_dot=grouped_dot)
+def moe_ffn(cfg: ModelConfig, layer: dict, h, grouped_dot: Optional[Callable] = None,
+            key: Optional[jrandom.Key] = None, train: bool = False):
+    """The MoE FFN of one block: (out, l_aux).  Dropless routing draws
+    nothing, and ``grouped_dot`` replaces its grouped matmul (a check holds
+    the kernels against the plain path); GShard routing draws the gate's
+    noise from the layer's ``key`` when ``train``."""
+    if is_dropless(cfg):
+        out, l_aux, _ = dropless_moe_apply(layer["moe"], h, top_k=cfg.top_k, grouped_dot=grouped_dot)
+    else:
+        if grouped_dot is not None:
+            raise ValueError("GShard routing runs no grouped matmul to replace")
+        out, l_aux, _ = moe_layer_apply(
+            layer["moe"], h, top_k=cfg.top_k,
+            capacity_factor=cfg.moe_capacity_factor if train else cfg.moe_eval_capacity_factor,
+            min_capacity=cfg.moe_min_capacity, drop_tokens=True, use_rts=cfg.moe_use_rts,
+            noisy_gate_policy=cfg.moe_noisy_gate_policy if train else None, rng=key, train=train)
     return _residual_branch(cfg, layer, h, out), l_aux
 
 
@@ -98,18 +114,20 @@ def moe_model_forward(cfg: ModelConfig, params: dict, input_ids, positions, segm
     ``return_hidden``.  The aux losses are summed over the layers, not
     averaged (``modeling_moe.py:208-209``).  Dropout and recompute as the
     dense stack's (``models/base.py::layer_plan``), except that the number of
-    recomputed layers rounds (``modeling_moe.py:178``).  Dropless routing
-    draws nothing from the layer's key.  ``block_fn(layer, x, key) -> (x,
-    l_aux)`` replaces the block body."""
+    recomputed layers rounds (``modeling_moe.py:178``).  In training a
+    GShard layer gets its key for the gate's noise; dropless routing draws
+    nothing from it.  ``block_fn(layer, x, key) -> (x, l_aux)`` replaces the
+    block body."""
     if block_fn is None:
         def block_fn(layer, h, key):
             return block_forward(cfg, layer, h, positions, segment_ids, key, train,
-                                 ffn=lambda hh: moe_ffn(cfg, layer, hh))
+                                 ffn=lambda hh: moe_ffn(cfg, layer, hh, key=key, train=train))
     x = embed_tokens(cfg, params, input_ids)
     if cfg.residual_in_fp32:
         x = x.float()
     moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, key, policy in layer_plan(cfg, params["blocks"], dropout_rng, train, moe=True):
+    for layer, key, policy in layer_plan(cfg, params["blocks"], dropout_rng, train, moe=True,
+                                         keyed=not is_dropless(cfg)):
         x, l_aux = run_layer(block_fn, layer, key, policy, x)
         moe_loss = moe_loss + l_aux
     if return_hidden:
@@ -121,7 +139,7 @@ def moe_model_forward(cfg: ModelConfig, params: dict, input_ids, positions, segm
 def build_model_with_cfg(**kwargs) -> ModelDef:
     """The JAX ``build_model_with_cfg`` (``modeling_moe.py:217-238``):
     ``moe_gate_k`` is the routing top-k and ``moe_use_residual`` turns on the
-    residual branch; keys the port does not model are dropped or refused by
+    residual branch; keys the port does not model are dropped by
     ``config_from_kwargs``."""
     gate_k = kwargs.pop("moe_gate_k", None)
     if gate_k is not None:
@@ -131,9 +149,4 @@ def build_model_with_cfg(**kwargs) -> ModelDef:
     cfg = config_from_kwargs(kwargs, qkv_bias=True, o_bias=True, mlp_bias=False)
     if cfg.num_experts <= 1:
         raise ValueError("INTERNLM_MoE requires model.num_experts > 1")
-    if not is_dropless(cfg):
-        raise NotImplementedError(
-            f"moe_type={cfg.moe_type!r} with drop_tokens=True asks for GShard capacity routing "
-            "(internevo_tpu/models/moe/gshard.py), which comes with a later slice of the port; "
-            "dropless routing is moe_type='MegaBlock-D'")
     return ModelDef(config=cfg, init=partial(init_moe_params, cfg), apply=partial(moe_model_forward, cfg))

@@ -1,2 +1,2 @@
-"""MoE layers of the port (dropless routing; GShard and expert parallelism
-come with later slices)."""
+"""MoE layers of the port: dropless routing and GShard capacity routing
+(expert parallelism comes with the multi-GPU slice)."""

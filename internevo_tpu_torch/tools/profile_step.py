@@ -8,6 +8,8 @@ JAX step).
     python -m internevo_tpu_torch.tools.profile_step moe_score
     python -m internevo_tpu_torch.tools.profile_step internlm2_train
     python -m internevo_tpu_torch.tools.profile_step internlm2_score
+    python -m internevo_tpu_torch.tools.profile_step gshard_train
+    python -m internevo_tpu_torch.tools.profile_step gshard_score
 
 ``train``: the training slice's setup (``train_setup``): ``configs/7B_sft.py``
 at full width and 8 layers, one step of 4 micro-batches of one packed
@@ -19,7 +21,10 @@ on ``configs/7B_MoE4_sft.py`` routed dropless (``moe_config``), training at
 ``configs/7B_internlm2.py`` at full width and 16 layers with recompute and
 residual and attention dropout (``internlm2_train_config``), one step as
 ``train``'s; ``internlm2_score``: the same file at full depth, scored as
-``score``.  Weights are random from a seed.  The step runs
+``score``.  ``gshard_train`` and ``gshard_score``: ``configs/7B_MoE4_sft.py``
+as the file stands (GShard capacity routing, top-2, RTS, capacity factor 1;
+``gshard_config``), training at 4 layers, scoring at full depth.  Weights
+are random from a seed.  The step runs
 twice untraced (kernel builds, allocator), then once under
 ``torch.profiler`` with CPU and CUDA activities.  One JSON line: the card and
 its power limit, the traced step's wall seconds, the device's busy seconds
@@ -70,7 +75,8 @@ MOE_TRAIN_LAYERS = 4
 INTERNLM2_TRAIN_LAYERS = 16
 INTERNLM2_TRAIN_OVERRIDES = dict(checkpoint=1.0, drop_rate=0.1, attn_drop_rate=0.1)
 # the reference's name for dropless MegaBlocks, which the model routes through
-# the grouped matmul; the config file says "GShard" (capacity routing)
+# the grouped matmul (kernels B3, B4); the config file says "GShard" (capacity
+# routing, dense dispatch and combine), which ``gshard_config`` keeps
 MOE_TYPE = "MegaBlock-D"
 # kernel classes, first match of a name fragment wins ("tgmm_kernel" holds
 # "gmm_kernel", and none of the three holds "gemm")
@@ -191,6 +197,15 @@ def moe_config(num_layers: int | None = None) -> Config:
     return config
 
 
+def gshard_config(num_layers: int | None = None) -> Config:
+    """``configs/7B_MoE4_sft.py`` as the file stands (GShard routing, its lr
+    schedule), the depth cut to ``num_layers`` when given."""
+    config = Config.from_file(MOE_CONFIG)
+    if num_layers is not None:
+        config.model.num_layers = num_layers
+    return config
+
+
 def internlm2_train_config(num_layers: int = INTERNLM2_TRAIN_LAYERS, **overrides) -> Config:
     """``configs/7B_internlm2.py`` with the depth cut to ``num_layers``,
     ``INTERNLM2_TRAIN_OVERRIDES`` (then ``overrides``) on its model block,
@@ -241,7 +256,9 @@ def score_step(config: Config):
 PATHS = {"train": lambda: train_step(train_config()), "score": lambda: score_step(Config.from_file(CONFIG)),
          "moe_train": lambda: train_step(moe_config(MOE_TRAIN_LAYERS)), "moe_score": lambda: score_step(moe_config()),
          "internlm2_train": lambda: train_step(internlm2_train_config()),
-         "internlm2_score": lambda: score_step(Config.from_file(INTERNLM2_CONFIG))}
+         "internlm2_score": lambda: score_step(Config.from_file(INTERNLM2_CONFIG)),
+         "gshard_train": lambda: train_step(gshard_config(MOE_TRAIN_LAYERS)),
+         "gshard_score": lambda: score_step(gshard_config())}
 
 
 def main() -> None:

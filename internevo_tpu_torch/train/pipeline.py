@@ -1,17 +1,22 @@
-"""Train glue: model, optimizer and trainer from a config (port of
-``internevo_tpu/train/pipeline.py:35-175``; reference ``initialize_model``
-:157, ``initialize_optimizer`` :282).
+"""Train glue (port of ``internevo_tpu/train/pipeline.py``; reference
+``internlm/train/pipeline.py``): model, optimizer and trainer from a config
+(``initialize_model`` :157, ``initialize_optimizer`` :282), the batch on the
+device, ``load_new_batch`` (:380) and the step's metrics record (:462-633).
 
 The JAX functions read the launched global config (``gpc``); these take the
-config explicitly.  It must hold the blocks that the JAX ``launch`` fills in
-when a config file leaves them out (``adam``, ``grad_scaler``,
-``lr_scheduler``, ``beta2_scheduler``), as ``configs/7B_sft.py`` does.
+config explicitly.  It must hold the blocks that ``initialize/launch.py``'s
+``args_sanity_check`` fills in when a config file leaves them out (``adam``,
+``grad_scaler``, ``lr_scheduler``, ``beta2_scheduler``), as
+``configs/7B_sft.py`` holds them.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import logging
+import time
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from .. import models  # noqa: F401  (registry population)
@@ -19,23 +24,29 @@ from ..accelerator import get_device
 from ..core.config import Config
 from ..core.engine import Engine
 from ..core.scheduler.no_pipeline import make_eval_step, make_train_step
-from ..core.trainer import Trainer
+from ..core.trainer import Trainer, TrainState
 from ..models.base import ModelDef
 from ..ops.fused_ce import loss_knobs
 from ..solver.lr_scheduler import Beta2Scheduler, build_lr_scheduler
 from ..solver.optimizer import AdamWConfig, GradScalerConfig, init_optimizer_state
+from ..utils.common import get_megatron_flops
 from ..utils.registry import MODEL_INITIALIZER
 
-_MOE_FIELDS = {"top_k": "top_k", "drop_tokens": "moe_drop_tokens"}
+logger = logging.getLogger(__name__)
+
+# the top-level `moe = dict(...)` block's keys and the model fields they set
+# (JAX train/pipeline.py:53-56)
+_MOE_FIELDS = {"top_k": "top_k", "capacity_factor": "moe_capacity_factor",
+               "eval_capacity_factor": "moe_eval_capacity_factor", "min_capacity": "moe_min_capacity",
+               "drop_tokens": "moe_drop_tokens", "use_rts": "moe_use_rts",
+               "noisy_gate_policy": "moe_noisy_gate_policy"}
 
 
-def initialize_model(config: Config, device, generator: torch.Generator) -> tuple[ModelDef, dict]:
-    """Build the registered model of ``config.model_type`` (default
-    "INTERNLM", as ``initialize/launch.py:27``) and draw its params from
-    ``generator`` on ``device``.  Packed segments are never longer than
+def build_model(config: Config) -> ModelDef:
+    """The registered model of ``config.model_type`` (default "INTERNLM", as
+    ``initialize/launch.py:27``).  Packed segments are never longer than
     ``data.seq_len``, which becomes ``max_segment_len`` unless the model
     config sets it."""
-    device = get_device(device)
     model_cfg = dict(config.model)
     if "max_segment_len" not in model_cfg and "data" in config:
         model_cfg["max_segment_len"] = config.data.get("seq_len", None)
@@ -43,7 +54,13 @@ def initialize_model(config: Config, device, generator: torch.Generator) -> tupl
     # onto the model's moe fields, as JAX train/pipeline.py:49-59 does
     moe = config.get("moe") or {}
     model_cfg.update({dst: moe[src] for src, dst in _MOE_FIELDS.items() if src in moe})
-    model = MODEL_INITIALIZER.get_module(config.get("model_type", "INTERNLM"))(**model_cfg)
+    return MODEL_INITIALIZER.get_module(config.get("model_type", "INTERNLM"))(**model_cfg)
+
+
+def initialize_model(config: Config, device, generator: torch.Generator) -> tuple[ModelDef, dict]:
+    """``build_model``, and its params drawn from ``generator`` on ``device``."""
+    device = get_device(device)
+    model = build_model(config)
     return model, model.init(generator, device)
 
 
@@ -100,3 +117,92 @@ def initialize_trainer(model: ModelDef, params, opt_state, lr_scheduler, beta2_s
                                chunk_size=knobs["chunk_size"])
     engine = Engine(model, params, opt_state, train_step, lr_scheduler, beta2_scheduler, eval_step)
     return Trainer(engine)
+
+
+def batch_to_device(batch: tuple, micro_num: int, device) -> dict:
+    """The loader's ``(data, labels)`` (arrays (micro_num * dp_batch, P), the
+    rows of one micro step consecutive) as (micro_num, dp_batch, P) tensors
+    on ``device``: ``input_ids`` and ``labels`` int64, ``indexes`` and
+    ``segment_ids`` int32 (JAX ``batch_to_device``, :178)."""
+    data, labels = batch
+    arrays = {"input_ids": data["input_ids"], "segment_ids": data["segment_ids"], "indexes": data["indexes"],
+              "labels": labels}
+    total, length = arrays["input_ids"].shape
+    if total % micro_num:
+        raise ValueError(f"{total} rows do not split into {micro_num} micro-batches")
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(v).reshape(micro_num, total // micro_num, length))
+        out[k] = t.to(device=device, dtype=torch.int64 if k in ("input_ids", "labels") else torch.int32)
+    return out
+
+
+def load_new_batch(train_dl, train_iter, train_state: TrainState):
+    """The next batch, rolling into a new epoch when the loader runs out
+    (JAX ``load_new_batch``, :208-229): the per-epoch consumption restarts,
+    the batch count stays cumulative, and the resume snapshot is taken anew
+    from the live sampler, which reshuffled at the end of the epoch."""
+    try:
+        batch = next(train_iter)
+        train_state.num_consumed_samples_in_epoch += len(batch[1])
+    except StopIteration:
+        train_iter = iter(train_dl)
+        batch = next(train_iter)
+        train_state.num_consumed_samples_in_epoch = 0
+        train_state.sampler_consumed_samples = 0
+        if train_state.batch_sampler is not None:
+            train_state.batch_sampler_state = train_state.batch_sampler.copy()
+    train_state.note_batch_consumed(len(batch[1]))
+    return batch, train_iter
+
+
+def record_current_batch_training_metrics(get_tflops_func: Callable, logger_obj, writer, success_update: bool,
+                                          batch_count: int, batch: dict, train_state: TrainState, engine,
+                                          start_time: float, loss: float, grad_norm: float, metrics: dict) -> dict:
+    """Tokens a device a second, TFLOP/s and the step's line (JAX
+    ``record_current_batch_training_metrics``, :232-287, one device).
+    ``writer`` must be None: the scalar writer and the monitor's heartbeat
+    come with the observability slice (ROADMAP A7).  Returns the numbers of
+    the line."""
+    if writer is not None:
+        raise NotImplementedError("the scalar writer comes with the observability slice (ROADMAP A7)")
+    time_cost = time.time() - start_time
+    tokens = batch["input_ids"].numel()
+    tgs = tokens / time_cost
+    tflops = get_tflops_func(time_cost)
+    stat = train_state.tgs_statistic
+    stat["sum_step"] += 1
+    stat["sum_tg"] += tokens
+    stat["sum_time"] += time_cost
+    stat["last_tgs_10"].append(tgs)
+    stat["last_tgs_50"].append(tgs)
+    group_norms = {k: float(v) for k, v in metrics.get("grad_norm_groups", {}).items()}
+    gn_str = " ".join(f"{k}={v:.5f}" for k, v in sorted(group_norms.items()))
+    record = {"step": batch_count, "loss": loss, "grad_norm": grad_norm, "tgs": tgs, "tflops": tflops,
+              "time_cost": time_cost, "lr": engine.current_lr, "loss_scale": float(metrics["loss_scale"]),
+              "acc": float(metrics.get("acc", 0)), "perplexity": float(metrics.get("perplexity", 0)),
+              "moe_loss": float(metrics.get("moe_loss", 0)), "real_tokens": int(metrics.get("n_tokens", 0)),
+              "success_update": success_update}
+    logger_obj.info(
+        f"tflops={tflops:.2f} step={batch_count} loss={loss:.5f} "
+        f"tgs(tokens/gpu/second)={tgs:.2f} tgs_avg={np.mean(stat['last_tgs_10']):.2f} "
+        f"lr={engine.current_lr:.4e} loss_scale={record['loss_scale']:.1f} "
+        f"grad_norm={grad_norm:.5f} acc={record['acc']:.4f} perplexity={record['perplexity']:.3f} "
+        f"real_tokens={record['real_tokens']} " + (f"grad_norm_groups=[{gn_str}] " if gn_str else ""))
+    return record
+
+
+def get_tflops_func_builder(config: Config, checkpoint_fraction: float | None = None) -> Callable[[float], float]:
+    """Megatron TFLOP/s of one step from its seconds (JAX
+    ``get_tflops_func_builder``, :290-311), one device."""
+    model, data = config.model, config.data
+    ckpt = model.get("checkpoint", 0.0) if checkpoint_fraction is None else checkpoint_fraction
+
+    def f(elapsed: float) -> float:
+        return get_megatron_flops(elapsed, checkpoint=ckpt > 0, seq_len=data.seq_len,
+                                  hidden_size=model.hidden_size, num_layers=model.num_layers,
+                                  vocab_size=model.vocab_size, global_batch_size=data.micro_num * data.micro_bsz,
+                                  global_world_size=1, mlp_ratio=model.get("mlp_ratio", 4.0),
+                                  use_swiglu=model.get("use_swiglu", True))
+
+    return f

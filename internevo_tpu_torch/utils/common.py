@@ -1,6 +1,9 @@
-"""Flops accounting and device peaks (port of ``internevo_tpu/utils/common.py``)."""
+"""Flops accounting, device peaks, the batch skipper and the entry point's
+CLI (port of ``internevo_tpu/utils/common.py``)."""
 
 from __future__ import annotations
+
+import argparse
 
 import torch
 
@@ -59,3 +62,29 @@ def device_peak_tflops(device_name: str | None = None) -> float:
 def device_peak_bandwidth(device_name: str | None = None) -> float:
     """Device-memory bytes/s of the named card (default: CUDA device 0)."""
     return _lookup(GPU_PEAK_BYTES_PER_S, "memory bandwidth", device_name)
+
+
+class BatchSkipper:
+    """Skip the batches of given global steps, "lo-hi,n,..." (reference
+    ``utils/common.py:165``)."""
+
+    def __init__(self, skip_batches: str = ""):
+        self.intervals = []
+        if skip_batches:
+            for chunk in skip_batches.split(","):
+                lo, _, hi = chunk.partition("-")
+                hi = hi or lo
+                self.intervals.append((int(lo), int(hi)))
+
+    def __call__(self, batch_count: int) -> bool:
+        return any(lo <= batch_count <= hi for lo, hi in self.intervals)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The entry point's CLI: the root ``train.py``'s ``--config`` and
+    ``--seed``, and ``--device`` (the card unless "cpu" is asked for)."""
+    parser = argparse.ArgumentParser(description="InternEvo training on one device (PyTorch port)")
+    parser.add_argument("--config", type=str, required=True, help="path to the python config file")
+    parser.add_argument("--seed", type=int, default=1024)
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    return parser.parse_args(argv)

@@ -2,8 +2,9 @@
 one numpy-made parameter tree: logits and the summed aux loss with and
 without the residual-MoE branch, the eval step, every param grad against
 ``jax.grad``, the weight bridge round trip of the MoE subtree, the MoE
-configuration through ``initialize_model``, the refusal of GShard routing,
-and a tiny MoE trainer's three steps against the JAX trainer.
+configuration through ``initialize_model`` (routed dropless, and the shipped
+file unmodified, routed by capacity), and a tiny MoE trainer's three steps
+against the JAX trainer.
 
 fp32 throughout: the point is the algorithm.  Tolerances as the dense model's
 tests (``test_torch_model.py``, ``test_torch_train.py``); the trainer's
@@ -163,7 +164,8 @@ def test_moe_init_and_config():
     """``configs/7B_MoE4_sft.py`` routed dropless (the profiler's
     ``moe_config``), cut to a narrow width: the ``moe`` block's top_k and
     drop_tokens reach the model; the gate is fp32 (H, E); no dense MLP is
-    drawn; the config file as it stands asks for GShard and is refused."""
+    drawn; the config file as it stands builds and routes GShard, its
+    ``moe`` block's capacity and noise keys reaching the model."""
     from internevo_tpu_torch.tools.profile_step import moe_config
     from internevo_tpu_torch.train.pipeline import initialize_model
 
@@ -183,9 +185,19 @@ def test_moe_init_and_config():
     logits, aux = model.apply(params, ids, torch.arange(8)[None], torch.ones(1, 8, dtype=torch.int32))
     assert logits.shape == (1, 8, 256) and bool(torch.isfinite(logits.float()).all()) and float(aux["moe"]) > 0
 
+    from internevo_tpu_torch.core.config import Config
+    from internevo_tpu_torch.tools.profile_step import MOE_CONFIG
+
+    shipped = Config.from_file(MOE_CONFIG)
+    shipped.model.update(num_layers=2, hidden_size=128, num_attention_heads=2, vocab_size=256)
+    gshard, gparams = initialize_model(shipped, "cpu", torch.Generator().manual_seed(0))
+    g = gshard.config
+    assert (g.moe_type, g.top_k, g.moe_capacity_factor, g.moe_eval_capacity_factor, g.moe_min_capacity,
+            g.moe_use_rts, g.moe_noisy_gate_policy) == ("GShard", 2, 1.0, 1.0, 4, True, None)
+    assert not tmoe.is_dropless(g)
+    logits, aux = gshard.apply(gparams, ids, torch.arange(8)[None], torch.ones(1, 8, dtype=torch.int32))
+    assert logits.shape == (1, 8, 256) and bool(torch.isfinite(logits.float()).all()) and float(aux["moe"]) > 0
     cfg.model.moe_type = "GShard"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        initialize_model(cfg, "cpu", torch.Generator().manual_seed(0))
     cfg.moe.drop_tokens = False  # no token may drop: the JAX model routes dropless
     assert tmoe.is_dropless(initialize_model(cfg, "cpu", torch.Generator().manual_seed(0))[0].config)
 

@@ -46,8 +46,22 @@ PORT_MODULES = [
     "internevo_tpu_torch.models.modeling_moe",
     "internevo_tpu_torch.models.moe",
     "internevo_tpu_torch.models.moe.dropless",
+    "internevo_tpu_torch.models.moe.gshard",
     "internevo_tpu_torch.models.jax_bridge",
+    "internevo_tpu_torch.core.scheduler.hooks",
+    "internevo_tpu_torch.data.dummy_dataset",
+    "internevo_tpu_torch.data.utils",
+    "internevo_tpu_torch.data.packed_dataset",
+    "internevo_tpu_torch.data.batch_sampler",
+    "internevo_tpu_torch.data.collaters",
+    "internevo_tpu_torch.data.single_dataset",
+    "internevo_tpu_torch.data.build_dataloader",
+    "internevo_tpu_torch.data.train_state",
+    "internevo_tpu_torch.native",
+    "internevo_tpu_torch.initialize",
+    "internevo_tpu_torch.initialize.launch",
     "internevo_tpu_torch.train.pipeline",
+    "internevo_tpu_torch.train.main",
     "internevo_tpu_torch.apis.inference",
     "internevo_tpu_torch.tools",
     "internevo_tpu_torch.tools.profile_step",
@@ -76,12 +90,16 @@ def test_get_device_cuda_raises_without_gpu(monkeypatch):
 
 
 def test_tensor_makers_default_to_the_card(monkeypatch):
-    """``init_kv_cache``, ``params_from_jax`` and ``opt_state_from_jax`` put
-    their tensors on the card unless the caller asks for the CPU, and without
-    a card they raise, as ``get_device("cuda")`` does."""
+    """``init_kv_cache``, ``params_from_jax``, ``opt_state_from_jax`` and the
+    GShard gate's draws (``_gumbel``, ``_uniform``) put their tensors on the
+    card unless the caller asks for the CPU, and without a card they raise,
+    as ``get_device("cuda")`` does; the RNG helpers under them take no
+    default device."""
     import numpy as np
 
     from internevo_tpu_torch.apis.inference import init_kv_cache
+    from internevo_tpu_torch.core import random as jrandom
+    from internevo_tpu_torch.models.moe import gshard
     from internevo_tpu_torch.models.base import ModelConfig
     from internevo_tpu_torch.models.jax_bridge import opt_state_from_jax, params_from_jax
 
@@ -92,9 +110,14 @@ def test_tensor_makers_default_to_the_card(monkeypatch):
             "norm": np.ones(8, np.float32), "head": {"kernel": np.zeros((8, 4), np.float32)}}
     state = {"step": np.zeros((), np.int32), "master": tree, "m": tree, "v": tree}
     for make in (lambda: init_kv_cache(cfg, 1, 4), lambda: params_from_jax(tree),
-                 lambda: opt_state_from_jax(state)):
+                 lambda: opt_state_from_jax(state), lambda: gshard._gumbel((0, 1), (4, 2)),
+                 lambda: gshard._uniform((0, 1), (4, 2))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+    for draw in (jrandom.bits, jrandom.uniform, jrandom.bernoulli):
+        with pytest.raises(TypeError, match="device"):
+            draw((0, 1), shape=(4, 2))
+    assert gshard._gumbel((0, 1), (4, 2), "cpu").device.type == "cpu"
     assert init_kv_cache(cfg, 1, 4, "cpu")["k"].device.type == "cpu"
     assert params_from_jax(tree, "cpu")["blocks"][0]["norm1"].device.type == "cpu"
     assert opt_state_from_jax(state, "cpu")["m"]["norm"].device.type == "cpu"

@@ -53,14 +53,14 @@ def test_bits_uniform_bernoulli(seed, shape):
     jk = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
     tk = tr.fold_in(tr.PRNGKey(seed), 3)
     jb = np.asarray(jax.random.bits(jk, shape, dtype=jnp.uint32)).astype(np.int64)
-    tb = tr.bits(tk, shape).numpy()
+    tb = tr.bits(tk, shape, device="cpu").numpy()
     assert tb.shape == jb.shape and np.array_equal(tb, jb)
     assert tr.bits_scalar(tk) == int(np.asarray(jax.random.bits(jk, dtype=jnp.uint32)))
-    assert tr.uniform(tk, shape).numpy().tobytes() == np.asarray(jax.random.uniform(jk, shape)).tobytes()
+    assert tr.uniform(tk, shape, device="cpu").numpy().tobytes() == np.asarray(jax.random.uniform(jk, shape)).tobytes()
     ju = np.asarray(jax.random.uniform(jk, shape, minval=-2.5, maxval=3.1))
-    assert tr.uniform(tk, shape, -2.5, 3.1).numpy().tobytes() == ju.tobytes()
+    assert tr.uniform(tk, shape, -2.5, 3.1, device="cpu").numpy().tobytes() == ju.tobytes()
     for p in (0.1, 0.5, 1.0 - 0.1, 0.123456):
-        np.testing.assert_array_equal(tr.bernoulli(tk, p, shape).numpy(),
+        np.testing.assert_array_equal(tr.bernoulli(tk, p, shape, device="cpu").numpy(),
                                       np.asarray(jax.random.bernoulli(jk, p, shape)))
 
 
@@ -69,7 +69,7 @@ def test_bits_past_2_pow_24_elements():
     precision), made in chunks."""
     shape = (4097, 4097)
     jk = jax.random.PRNGKey(11)
-    np.testing.assert_array_equal(tr.bits(tr.PRNGKey(11), shape).numpy(),
+    np.testing.assert_array_equal(tr.bits(tr.PRNGKey(11), shape, device="cpu").numpy(),
                                   np.asarray(jax.random.bits(jk, shape, dtype=jnp.uint32)).astype(np.int64))
 
 

@@ -106,32 +106,55 @@ the run with a non-zero exit:
                  fault (each layer drawing the next layer's key) the check
                  must refuse;
 22. entry_training  the entry point's loop (``train/main.py::run_training``)
-                 in-process on the same file with the depth cut to 4 layers
-                 and ``data.total_steps`` to 6: the shipped data path
-                 (``RandomDataset`` -> ``PackedDatasetWithCut`` -> sampler ->
-                 collater, a prefetch thread), GShard routing with the
-                 gumbel noise folded from the applied step; tokens/s,
-                 activated MFU, peak memory, losses, launches a step and the
-                 seconds a step the loop waited for its batch.
+                 in-process on the same file with saving on
+                 (``ckpt.enable_save_ckpt``, a fresh folder), the depth cut
+                 to 4 layers, or 2 or 1 where two checkpoints of 4 do not
+                 fit the free space or the disk write budget
+                 (``checkpoint_disk`` prints ``df``, ``free``, the choice and
+                 a 2 GiB write and read as a yardstick), and
+                 ``data.total_steps`` to 52, the rest as shipped: the data
+                 path (``RandomDataset`` -> ``PackedDatasetWithCut`` ->
+                 sampler -> collater, a prefetch thread), GShard routing with
+                 the gumbel noise folded from the applied step, the async
+                 save of a snapshot at step 25 into ``snapshot/1`` and of
+                 ``50/`` at step 50, eval of the 500-sample valid set at step
+                 50 (B1 launches); the step time and tokens/s over steps
+                 2-51 without the two that paid for a save, each save's
+                 seconds holding the loop and to its stamp, its bytes, the
+                 eval's loss, accuracy, perplexity and seconds, peak memory,
+                 launches; the state each save snapshotted is fingerprinted
+                 on the device (exact int64 sums of each leaf's bits);
+23. checkpoint_resume  a second ``run_training`` on the same folder from
+                 another init seed: it must auto-resume from ``50/`` (the
+                 newest stamp), load the snapshot's fingerprints exactly,
+                 refuse a planted flip of one bit in a loaded master
+                 weight, and run batches 50-51 to the first run's losses,
+                 grad norms and final params, masters and moments, bit for
+                 bit; the load's seconds.
 
 An argument ``--only phase[,phase]`` runs the device and build phases and
-then only the named phases of 20-22 (for a first call after a change to
-them); with no argument every phase runs.
+then only the named phases of 20-23 (for a first call after a change to
+them; ``checkpoint_resume`` runs ``entry_training`` first); with no argument
+every phase runs.
 
-Then a ``{"kernels": [...]}`` line ``{"kernels": [...]}`` line and, last, the run's verdict line.  With no
+Then a ``{"kernels": [...]}`` line and, last, the run's verdict line.  With no
 CUDA device the script exits non-zero before printing any result.  It imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -142,6 +165,7 @@ import torch.nn.functional as F
 
 from internevo_tpu_torch.apis.inference import (SequenceGenerator, init_kv_cache, model_decode_step,
                                                  top_k_top_p_filtering)
+from internevo_tpu_torch.checkpoint.checkpoint_manager import CheckpointManager
 from internevo_tpu_torch.core import random as jrandom
 from internevo_tpu_torch.core.config import Config
 from internevo_tpu_torch.core.scheduler.no_pipeline import make_eval_step
@@ -152,14 +176,15 @@ from internevo_tpu_torch.ops.attention import flash_attention
 from internevo_tpu_torch.ops.cuda import build, dropout, fused_adamw, gmm
 from internevo_tpu_torch.ops.cuda import splash_attention as splash
 from internevo_tpu_torch.ops.fused_ce import fused_norm_head_ce
-from internevo_tpu_torch.solver.optimizer import tree_leaves
+from internevo_tpu_torch.solver.optimizer import tree_leaves, tree_leaves_with_path
 from internevo_tpu_torch.tools import profile_step
 from internevo_tpu_torch.tools.profile_step import (INTERNLM2_CONFIG, gshard_config, internlm2_train_config,
                                                     moe_config,
                                                     moe_train_setup, packed_batch, packed_segments, train_config,
                                                     train_setup)
 from internevo_tpu_torch.train.main import run_training
-from internevo_tpu_torch.train.pipeline import initialize_model
+from internevo_tpu_torch.train.pipeline import build_model, initialize_model
+from internevo_tpu_torch.utils.storage_manager import StorageManager
 from internevo_tpu_torch.utils.common import (device_peak_bandwidth, device_peak_tflops,
                                               get_megatron_flops)
 
@@ -296,7 +321,19 @@ GSHARD_GRAD_REL_L2 = GRAD_REL_L2
 GSHARD_AUX_REL = 3e-5
 GSHARD_ROUTE_DISAGREE = 7.3e-2
 # entry_training: the shipped MoE file, cut only where one card forces it
-ENTRY_LAYERS, ENTRY_STEPS, ENTRY_SEED = 4, 6, 1024
+# and saving on, past one valid_every (50): a snapshot at step 25, a save and
+# eval at step 50.  Two checkpoints live at once and both are written, so the
+# depth is the deepest of ENTRY_DEPTHS whose two checkpoints fit the free
+# space and, with the disk yardstick, a budget of disk writes: the H100
+# machine this script is run on accepts at most 45 GiB of disk writes a run
+ENTRY_DEPTHS, ENTRY_STEPS, ENTRY_SEED = (4, 2, 1), 52, 1024
+DISK_WRITE_BUDGET = 42 << 30
+# checkpoint_resume: params from another seed, so that a load that did nothing
+# shows (the launch seed stays: the gate noise draws its stream); bit for bit
+# the first run's steps 50-51 and final state, and a planted flip of one bit
+# in one loaded leaf the fingerprint check must refuse
+ENTRY_SEED_RESUME, PLANTED_BIT_AT, FINGERPRINT_CHUNK = 4096, 12345, 1 << 24
+DISK_YARDSTICK, DISK_CHUNK = 2 << 30, 64 << 20
 
 
 def emit(obj) -> None:
@@ -1805,58 +1842,277 @@ def phase_gshard_grads(dev):
     del model, params, leaves, kernel
 
 
-def phase_entry_training(dev):
-    """The entry point's loop in-process (``train/main.py::run_training``)
-    on ``configs/7B_MoE4_sft.py`` with the depth cut to ``ENTRY_LAYERS`` and
-    ``data.total_steps`` to ``ENTRY_STEPS``, the rest as the file stands."""
-    config = gshard_config(ENTRY_LAYERS)
-    cut = {"model.num_layers": f"32 -> {ENTRY_LAYERS}",
-           "data.total_steps": f"{config.data.total_steps} -> {ENTRY_STEPS}"}
+def checkpoint_nbytes(layers: int) -> int:
+    """Bytes of one checkpoint of the entry phases' model: the params in
+    their dtypes and the fp32 master, m and v (14 bytes a bf16 param),
+    counted on the meta device (no memory, no time)."""
+    model = build_model(gshard_config(layers))
+    leaves = tree_leaves(model.init(torch.Generator(), "meta"))
+    return sum(t.numel() * (t.element_size() + 12) for t in leaves)
+
+
+def host_copy_rates(dev) -> dict:
+    """GB/s of a device-to-host copy of 2 GiB: into fresh pageable memory
+    (``.to("cpu")``), into a pinned buffer, and the pinned buffer's
+    allocation: the yardsticks of a save's snapshot."""
+    x = torch.empty(DISK_YARDSTICK // 2, dtype=torch.int16, device=dev).random_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pageable = x.to("cpu", copy=True)
+    pageable_s = time.perf_counter() - t0
+    del pageable
+    t0 = time.perf_counter()
+    pinned = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    alloc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pinned.copy_(x, non_blocking=True)
+    torch.cuda.synchronize()
+    pinned_s = time.perf_counter() - t0
+    del pinned, x
+    gb = DISK_YARDSTICK / 1e9
+    return {"bytes": DISK_YARDSTICK, "fresh_pageable_gb_per_s": gb / pageable_s, "pinned_alloc_gb_per_s": gb / alloc_s,
+            "pinned_copy_gb_per_s": gb / pinned_s}
+
+
+def phase_checkpoint_disk(dev, root: Path) -> dict:
+    """Where the entry phases' checkpoints go, and at what depth: ``df`` and
+    ``free`` of the machine, a 2 GiB write and read on the checkpoints'
+    filesystem and 2 GiB device-to-host copies (``host_copy_rates``) as
+    yardsticks for the save and load times, and the deepest
+    of ``ENTRY_DEPTHS`` whose two checkpoints fit the free space (with 5% to
+    spare) and the write budget; one that fits neither fails."""
+    df = subprocess.run(["df", "-B1", str(root)], capture_output=True, text=True, timeout=60).stdout
+    free_out = subprocess.run(["free", "-b"], capture_output=True, text=True, timeout=60).stdout
+    free = shutil.disk_usage(root).free
+    need = {L: 2 * checkpoint_nbytes(L) for L in ENTRY_DEPTHS}
+    fits = [L for L in ENTRY_DEPTHS if need[L] * 1.05 <= free and need[L] + DISK_YARDSTICK <= DISK_WRITE_BUDGET]
+    chunk = np.random.default_rng(SEED).integers(0, 256, DISK_CHUNK, dtype=np.uint8).tobytes()
+    probe = root / "disk_yardstick.bin"
+    try:
+        t0 = time.perf_counter()
+        with open(probe, "wb") as f:
+            for _ in range(DISK_YARDSTICK // DISK_CHUNK):
+                f.write(chunk)
+            f.flush()
+            os.fsync(f.fileno())
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        buf = bytearray(DISK_CHUNK)
+        with open(probe, "rb") as f:
+            while f.readinto(buf):
+                pass
+        read_s = time.perf_counter() - t0
+    finally:
+        probe.unlink(missing_ok=True)
+    host_copy = host_copy_rates(dev)
+    out = {"phase": "checkpoint_disk", "folder": str(root), "df": df.strip().splitlines(),
+           "free": free_out.strip().splitlines(), "free_bytes": free, "write_budget_bytes": DISK_WRITE_BUDGET,
+           "two_checkpoints_bytes": {str(L): n for L, n in need.items()}, "layers": fits[0] if fits else None,
+           "yardstick": {"bytes": DISK_YARDSTICK, "write_s": write_s, "write_gb_per_s": DISK_YARDSTICK / write_s / 1e9,
+                         "read_s": read_s, "read_gb_per_s": DISK_YARDSTICK / read_s / 1e9,
+                         "how": "64 MiB random chunks written and fsync'd, then read back (the page cache may serve "
+                                "the read)"},
+           "host_copy": host_copy}
+    emit(out)
+    if not fits:
+        raise AssertionError(f"{root}: {free} bytes free, a budget of {DISK_WRITE_BUDGET}; two checkpoints need {need}")
+    return out
+
+
+def entry_config(folder: Path, layers: int) -> tuple:
+    """``configs/7B_MoE4_sft.py`` cut for the entry phases, and the cuts."""
+    config = gshard_config(layers)
+    cut = {"model.num_layers": f"32 -> {layers}" + ("" if layers == ENTRY_DEPTHS[0] else
+                                                     f" (two {ENTRY_DEPTHS[0]}-layer checkpoints exceed the free "
+                                                     "space or the write budget: phase checkpoint_disk)"),
+           "data.total_steps": f"{config.data.total_steps} -> {ENTRY_STEPS}",
+           "ckpt.enable_save_ckpt": f"{config.ckpt.enable_save_ckpt} -> True",
+           "ckpt.save_ckpt_folder": f"{config.ckpt.save_ckpt_folder} -> local:{folder}"}
     config.data.total_steps = ENTRY_STEPS
+    config.ckpt.enable_save_ckpt = True
+    config.ckpt.save_ckpt_folder = f"local:{folder}"
+    return config, cut
+
+
+def fingerprint(tree) -> dict:
+    """Per leaf, two exact int64 sums of its bits on the device: the plain
+    sum (any one flipped bit changes it) and a position-weighted one (a
+    moved element changes it)."""
+    out = {}
+    for path, t in tree_leaves_with_path(tree):
+        bits = t.detach().reshape(-1).view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                                            8: torch.int64}[t.element_size()])
+        plain = torch.sum(bits, dtype=torch.int64)
+        weighted = torch.zeros((), dtype=torch.int64, device=t.device)
+        for lo in range(0, bits.numel(), FINGERPRINT_CHUNK):
+            part = bits[lo:lo + FINGERPRINT_CHUNK].to(torch.int64)
+            weights = torch.arange(lo, lo + part.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
+            weighted += torch.sum(part * weights)
+        out[path] = (int(plain), int(weighted))
+    return out
+
+
+def state_fingerprint(engine) -> dict:
+    return {"params": fingerprint(engine.params),
+            **{key: fingerprint(engine.opt_state[key]) for key in ("master", "m", "v")}}
+
+
+def fingerprint_mismatch(got: dict, want: dict) -> list:
+    return [(tree, path) for tree in want for path in want[tree] if got[tree].get(path) != want[tree][path]]
+
+
+@contextlib.contextmanager
+def record_snapshots(fingerprints: dict):
+    """While active, each save records the fingerprint of the state it
+    snapshots, by the save's folder (taken on the device just before the
+    copy to the host, which the step does not touch until it completes)."""
+    save = CheckpointManager.save_checkpoint
+
+    def recording(self, path, train_state=None, block=True):
+        fingerprints[StorageManager._parse(path)[1]] = state_fingerprint(self.engine)
+        return save(self, path, train_state, block)
+
+    CheckpointManager.save_checkpoint = recording
+    try:
+        yield
+    finally:
+        CheckpointManager.save_checkpoint = save
+
+
+def phase_entry_training(dev, folder: Path, layers: int) -> dict:
+    """The entry point's loop in-process (``train/main.py::run_training``)
+    on ``configs/7B_MoE4_sft.py`` past one ``valid_every`` with saving on
+    (``entry_config``): a snapshot at step 25 into ``snapshot/1``, a save at
+    step 50 into ``50/``, eval at step 50, 52 steps in all."""
+    config, cut = entry_config(folder, layers)
+    fingerprints = {}
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    out = run_training(config, device=dev, seed=ENTRY_SEED)
+    with record_snapshots(fingerprints):
+        out = run_training(config, device=dev, seed=ENTRY_SEED)
     torch.cuda.synchronize()
     total = (*kernel_counts(), *gmm_counts())
     peak = torch.cuda.max_memory_allocated() / 1e9
     cfg, data, recs = out["model"].config, out["config"].data, out["records"]
-    L, steps = cfg.num_layers, len(recs)
+    L, steps, mgr = cfg.num_layers, len(recs), out["ckpt_manager"]
     leaves = len(tree_leaves(out["engine"].params))
     n_params = sum(p.numel() for p in tree_leaves(out["engine"].params))
     tokens = data.micro_num * data.micro_bsz * data.seq_len
-    per_step = [c / steps for c in total]
-    want = [L * data.micro_num] * 3 + [0, leaves, 0, 0, 0]
+    evals = out["evals"]
+    eval_batches = sum(r["batches"] for e in evals for r in e["results"].values())
+    want = [steps * L * data.micro_num + eval_batches * L] + [steps * L * data.micro_num] * 2 + [0, steps * leaves,
+                                                                                               0, 0, 0]
     losses = [r["loss"] for r in recs]
-    step_s = float(np.median([r["time_cost"] for r in recs[1:]]))
+    paid = {b + 1 for b in out["saved_after"]}  # the step after a save waited for its snapshot
+    timed = [r for r in recs[2:] if r["step"] not in paid]
+    step_s = float(np.median([r["time_cost"] for r in timed]))
     tflops = get_megatron_flops(step_s, seq_len=data.seq_len, hidden_size=cfg.hidden_size, num_layers=L,
                                 vocab_size=cfg.vocab_size, global_batch_size=data.micro_num * data.micro_bsz,
                                 mlp_ratio=cfg.mlp_ratio * cfg.top_k)
+    saves = [{**s, "path": os.path.relpath(s["path"], folder), "gb": s["bytes"] / 1e9,
+              "write_gb_per_s": s["bytes"] / 1e9 / (s["stamp_s"] - s["snapshot_s"]),
+              "snapshot_gb_per_s": s["bytes"] / 1e9 / s["snapshot_s"]} for s in mgr.save_records]
     emit({"phase": "entry_training", "model": "configs/7B_MoE4_sft.py", "cut": cut, "layers": L,
           "routing": {"moe_type": cfg.moe_type, "top_k": cfg.top_k, "capacity_factor": cfg.moe_capacity_factor,
                       "use_rts": cfg.moe_use_rts, "noisy_gate_policy": cfg.moe_noisy_gate_policy},
+          "ckpt": {k: out["config"].ckpt[k] for k in ("checkpoint_every", "oss_snapshot_freq", "async_upload",
+                                                       "auto_resume")},
           "data_path": "RandomDataset -> PackedDatasetWithCut -> StaticBatchSampler -> packed_collate_fn",
           "micro_num": data.micro_num, "micro_bsz": data.micro_bsz, "packed_length": data.packed_length,
-          "params": n_params, "state_gb_at_18_bytes": 18 * n_params / 1e9, "leaves": leaves,
-          "setup_s": out["setup_s"], "steps": steps, "losses": losses,
+          "valid_every": data.valid_every, "params": n_params, "checkpoint_bytes_at_14": 14 * n_params,
+          "leaves": leaves, "setup_s": out["setup_s"], "steps": steps, "losses": losses,
           "moe_losses": [r["moe_loss"] for r in recs], "grad_norms": [r["grad_norm"] for r in recs],
           "lrs": [r["lr"] for r in recs], "step_s": [r["time_cost"] for r in recs],
-          "step_s_median_2_6": step_s, "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
-          "tflops_activated": tflops, "mfu": tflops / device_peak_tflops(),
-          "load_wait_s": out["load_wait_s"], "load_wait_s_median": float(np.median(out["load_wait_s"])),
-          "peak_memory_gb": peak, "launches_a_step_fwd_dkdv_dq_dropout_adamw_gmm_dgrad_tgmm": per_step})
-    if steps != ENTRY_STEPS or per_step != want:
-        raise AssertionError(f"{steps} steps, launches a step {per_step}: want {ENTRY_STEPS} and {want}")
-    # each step scores a fresh batch, so a step may read above the one before
-    # it; the last must read below the first
+          "steps_paying_a_save": sorted(paid), "step_s_median_2_51_without_saves": step_s,
+          "tokens_per_step": tokens, "tokens_per_s": tokens / step_s, "tflops_activated": tflops,
+          "mfu": tflops / device_peak_tflops(), "load_wait_s_median": float(np.median(out["load_wait_s"])),
+          "saves": saves, "saves_hold_loop_s": [s["snapshot_s"] for s in saves],
+          "saves_to_stamp_s": [s["stamp_s"] for s in saves],
+          "evals": [{"step": e["step"], "seconds": e["seconds"], **{k: {m: r[m] for m in
+                                                                         ("loss", "acc", "perplexity", "batches")}
+                                                                    for k, r in e["results"].items()}}
+                    for e in evals],
+          "peak_memory_gb": peak, "launches_fwd_dkdv_dq_dropout_adamw_gmm_dgrad_tgmm": list(total),
+          "launches_want": want})
+    if steps != ENTRY_STEPS or list(total) != want:
+        raise AssertionError(f"{steps} steps, launches {list(total)}: want {ENTRY_STEPS} and {want}")
+    if sorted(s["path"] for s in saves) != ["50", "snapshot/1"] or [e["step"] for e in evals] != [50]:
+        raise AssertionError(f"saves {saves}, evals {evals}: want snapshot/1 and 50, and eval at step 50")
+    if not all((folder / s["path"] / f"{s['step']}.step").exists() for s in saves):
+        raise AssertionError(f"a save has no stamp: {saves}")
     if not all(math.isfinite(x) for x in losses + [r["grad_norm"] for r in recs]) or not losses[-1] < losses[0]:
         raise AssertionError(f"entry training losses {losses}")
     if not all(r["success_update"] for r in recs) or any(r["real_tokens"] <= 0 for r in recs):
         raise AssertionError(f"a skipped step or an empty batch: {recs}")
+    result = {"fwd": total[0], "dkdv": total[1], "dq": total[2], "adamw": total[4],
+              "tail": [(r["step"], r["loss"], r["grad_norm"], r["moe_loss"]) for r in recs[-2:]],
+              "final": state_fingerprint(out["engine"]), "saved": fingerprints[str(folder / "50")]}
     del out
-    return dict(zip(("fwd", "dkdv", "dq"), total[:3]), adamw=total[4])
+    return result
 
 
-GSHARD_PHASES = ("gshard_scoring", "gshard_grads", "entry_training")
+def phase_checkpoint_resume(dev, folder: Path, layers: int, first: dict) -> dict:
+    """A second ``run_training`` on the same folder from params drawn from
+    another seed (the launch seed, whose streams the gate noise draws, is
+    the first run's): it must auto-resume from ``50/`` (the newest stamp,
+    not ``snapshot/1``),
+    load the state the first run snapshotted there (its fingerprints),
+    refuse a planted bit flip in a loaded leaf, and run batches 50 and 51 to
+    the first run's losses, grad norms, params, masters and moments, bit for
+    bit."""
+    config, cut = entry_config(folder, layers)
+    held = {}
+    resume = CheckpointManager.try_resume_training
+
+    def checked(self, train_state, current_time=""):
+        resume(self, train_state, current_time)
+        held["loaded"] = fingerprint_mismatch(state_fingerprint(self.engine), first["saved"])
+        bits = self.engine.opt_state["master"]["embedding"]["weight"].view(-1).view(torch.int32)
+        bits[PLANTED_BIT_AT] ^= 1  # the lowest mantissa bit of one master weight
+        held["planted"] = fingerprint_mismatch(state_fingerprint(self.engine), first["saved"])
+        bits[PLANTED_BIT_AT] ^= 1
+        held["restored"] = fingerprint_mismatch(state_fingerprint(self.engine), first["saved"])
+
+    _, params = initialize_model(config, dev, torch.Generator(device=dev).manual_seed(ENTRY_SEED_RESUME))
+    zero_counts()
+    CheckpointManager.try_resume_training = checked
+    try:
+        out = run_training(config, params=params, device=dev, seed=ENTRY_SEED)
+    finally:
+        CheckpointManager.try_resume_training = resume
+    del params
+    torch.cuda.synchronize()
+    total = (*kernel_counts(), *gmm_counts())
+    recs, L, micro = out["records"], out["model"].config.num_layers, out["config"].data.micro_num
+    load = out["ckpt_manager"].load_record
+    tail = [(r["step"], r["loss"], r["grad_norm"], r["moe_loss"]) for r in recs]
+    final = fingerprint_mismatch(state_fingerprint(out["engine"]), first["final"])
+    leaves = len(tree_leaves(out["engine"].params))
+    want = [2 * L * micro] * 3 + [0, 2 * leaves, 0, 0, 0]
+    emit({"phase": "checkpoint_resume", "model": "configs/7B_MoE4_sft.py", "cut": cut, "layers": L,
+          "init_seed": ENTRY_SEED_RESUME, "loaded_from": os.path.relpath(load["path"], folder),
+          "load_s": load["load_s"], "setup_s": out["setup_s"],
+          "load_gb_per_s": first["bytes"] / 1e9 / load["load_s"],
+          "loaded_vs_snapshot_mismatches": len(held["loaded"]),
+          "planted": f"bit 0 of element {PLANTED_BIT_AT} of opt_state['master']['embedding']['weight'] flipped",
+          "planted_mismatches": held["planted"], "after_unflip_mismatches": len(held["restored"]),
+          "steps": tail, "first_run_steps": first["tail"], "final_state_mismatches": len(final),
+          "launches_fwd_dkdv_dq_dropout_adamw_gmm_dgrad_tgmm": list(total), "launches_want": want})
+    if load["path"] != str(folder / "50"):
+        raise AssertionError(f"resumed from {load['path']}, want {folder / '50'} (the newest stamp)")
+    if held["loaded"] or held["restored"]:
+        raise AssertionError(f"the loaded state differs from the snapshot: {held['loaded'][:5]}")
+    if len(held["planted"]) != 1:
+        raise AssertionError(f"the fingerprint check let a flipped bit through: {held['planted']}")
+    if tail != first["tail"] or final:
+        raise AssertionError(f"resumed steps {tail} vs {first['tail']}; final state differs in {final[:5]}")
+    if list(total) != want:
+        raise AssertionError(f"launches {list(total)}, want {want}")
+    del out
+    return {"fwd": total[0], "dkdv": total[1], "dq": total[2], "adamw": total[4]}
+
+
+GSHARD_PHASES = ("gshard_scoring", "gshard_grads", "entry_training", "checkpoint_resume")
 
 
 def run_gshard_phases(dev, only=GSHARD_PHASES) -> dict:
@@ -1869,10 +2125,23 @@ def run_gshard_phases(dev, only=GSHARD_PHASES) -> dict:
         phase_gshard_grads(dev)
         gc.collect()
         torch.cuda.empty_cache()
-    if "entry_training" in only:
-        out["entry_training"] = phase_entry_training(dev)
-        gc.collect()
-        torch.cuda.empty_cache()
+    if "entry_training" in only or "checkpoint_resume" in only:
+        # a fresh folder on every call: auto-resume would load one left behind
+        base = max((REPO, Path(tempfile.gettempdir())), key=lambda p: shutil.disk_usage(p).free)
+        folder = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base))
+        try:
+            layers = phase_checkpoint_disk(dev, folder)["layers"]
+            first = phase_entry_training(dev, folder, layers)
+            out["entry_training"] = first
+            gc.collect()
+            torch.cuda.empty_cache()
+            if "checkpoint_resume" in only:
+                first["bytes"] = sum(p.stat().st_size for p in (folder / "50").rglob("*") if p.is_file())
+                out["checkpoint_resume"] = phase_checkpoint_resume(dev, folder, layers, first)
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(folder, ignore_errors=True)
     return out
 
 
@@ -1939,7 +2208,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gshard_run = run_gshard_phases(dev)
-    entry = gshard_run["entry_training"]
+    entry, resumed = gshard_run["entry_training"], gshard_run["checkpoint_resume"]
 
     gmm_source = f"internevo_tpu_torch/csrc/{gmm.SOURCE}"
     bwd_source = f"internevo_tpu_torch/csrc/{splash.BWD_SOURCE}"
@@ -1954,20 +2223,23 @@ def main(argv=None) -> int:
          "replaces": "internevo_tpu/ops/pallas/splash_attention.py:558 (_fwd_kernel_bsd), :457 (_fwd_kernel)",
          "launches": launches, "launches_training": trained["fwd"], "launches_internlm2_scoring": internlm2_scored,
          "launches_internlm2_training": internlm2["fwd"], "launches_gshard_scoring": gshard_run["gshard_scoring"],
-         "launches_entry_training": entry["fwd"], "max_abs_err": kernel["max_err_out"],
+         "launches_entry_training": entry["fwd"], "launches_checkpoint_resume": resumed["fwd"],
+         "max_abs_err": kernel["max_err_out"],
          "max_err_lse": kernel["max_err_lse"], "ms": kernel["kernel_ms"], "wrapper_ms": kernel["wrapper_ms"],
          "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
          "library_ms": kernel["library_ms"], "library_flex_ms": kernel["library_flex_ms"]},
         {"name": "splash_attention_bwd_dkdv", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,
          "launches": trained["dkdv"], "launches_internlm2_training": internlm2["dkdv"],
-         "launches_entry_training": entry["dkdv"], **bwd["dkdv"],
-         **bwd_common},
+         "launches_entry_training": entry["dkdv"], "launches_checkpoint_resume": resumed["dkdv"],
+         **bwd["dkdv"], **bwd_common},
         {"name": "splash_attention_bwd_dq", "route": "cuda", "source": bwd_source, "replaces": bwd_replaces,
          "launches": trained["dq"], "launches_internlm2_training": internlm2["dq"],
-         "launches_entry_training": entry["dq"], **bwd["dq"], **bwd_common},
+         "launches_entry_training": entry["dq"], "launches_checkpoint_resume": resumed["dq"], **bwd["dq"],
+         **bwd_common},
         {"name": "fused_adamw", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/fused_adamw.py",
          "replaces": "internevo_tpu/ops/pallas/fused_adamw.py:37 (_kernel)", "launches": trained["adamw"],
-         "launches_internlm2_training": internlm2["adamw"], "launches_entry_training": entry["adamw"], **adamw},
+         "launches_internlm2_training": internlm2["adamw"], "launches_entry_training": entry["adamw"],
+         "launches_checkpoint_resume": resumed["adamw"], **adamw},
         {"name": "dropout", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/dropout.py",
          "replaces": "internevo_tpu/models/base.py:412 (dropout: jax.random.bernoulli, no TPU kernel)",
          "launches": internlm2["dropout"], **dropout_kernel},

@@ -33,10 +33,17 @@ class Engine:
         self.lr_scheduler = lr_scheduler
         self.beta2_scheduler = beta2_scheduler
         self.current_lr = 0.0
+        self._training = True
         # host-side mirror of opt_state["step"]: reading the device value every
         # step would wait for the device; incremented optimistically and
         # corrected via note_overflow() when a step was skipped
         self._host_step: Optional[int] = None
+
+    def train(self):
+        self._training = True
+
+    def eval(self):
+        self._training = False
 
     @property
     def step_count(self) -> int:
@@ -48,6 +55,12 @@ class Engine:
         """The step just run turned out to be skipped (non-finite grads)."""
         if self._host_step is not None and self._host_step > 0:
             self._host_step -= 1
+
+    def reset_step_count(self) -> None:
+        """Read the step count from the optimizer state again (after a
+        checkpoint load: the lr schedule, dropout and the gate noise all
+        follow the applied-step count)."""
+        self._host_step = None
 
     def run_step(self, batch: dict) -> dict:
         """One global step: evaluate the schedules on the host, run the step."""

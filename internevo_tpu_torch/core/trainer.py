@@ -89,6 +89,12 @@ class Trainer:
     def engine(self):
         return self._engine
 
+    def train(self):
+        self._engine.train()
+
+    def eval(self):
+        self._engine.eval()
+
     def execute_schedule(self, batch: dict) -> dict:
         """One training step on ``batch`` ((micro_num, B, S) tensors)."""
         return self._engine.run_step(batch)

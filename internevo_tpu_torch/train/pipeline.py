@@ -12,7 +12,6 @@ config explicitly.  It must hold the blocks that ``initialize/launch.py``'s
 
 from __future__ import annotations
 
-import logging
 import time
 from typing import Any, Callable
 
@@ -26,13 +25,16 @@ from ..core.engine import Engine
 from ..core.scheduler.no_pipeline import make_eval_step, make_train_step
 from ..core.trainer import Trainer, TrainState
 from ..models.base import ModelDef
+from ..monitor.monitor import monitor_manager, send_heartbeat
 from ..ops.fused_ce import loss_knobs
 from ..solver.lr_scheduler import Beta2Scheduler, build_lr_scheduler
 from ..solver.optimizer import AdamWConfig, GradScalerConfig, init_optimizer_state
 from ..utils.common import get_megatron_flops
+from ..utils.logger import get_logger
 from ..utils.registry import MODEL_INITIALIZER
+from ..utils.timers import megatron_timer as timer
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 # the top-level `moe = dict(...)` block's keys and the model fields they set
 # (JAX train/pipeline.py:53-56)
@@ -142,6 +144,7 @@ def load_new_batch(train_dl, train_iter, train_state: TrainState):
     (JAX ``load_new_batch``, :208-229): the per-epoch consumption restarts,
     the batch count stays cumulative, and the resume snapshot is taken anew
     from the live sampler, which reshuffled at the end of the epoch."""
+    timer("batch-gen").start()
     try:
         batch = next(train_iter)
         train_state.num_consumed_samples_in_epoch += len(batch[1])
@@ -153,6 +156,7 @@ def load_new_batch(train_dl, train_iter, train_state: TrainState):
         if train_state.batch_sampler is not None:
             train_state.batch_sampler_state = train_state.batch_sampler.copy()
     train_state.note_batch_consumed(len(batch[1]))
+    timer("batch-gen").stop()
     return batch, train_iter
 
 
@@ -160,12 +164,9 @@ def record_current_batch_training_metrics(get_tflops_func: Callable, logger_obj,
                                           batch_count: int, batch: dict, train_state: TrainState, engine,
                                           start_time: float, loss: float, grad_norm: float, metrics: dict) -> dict:
     """Tokens a device a second, TFLOP/s and the step's line (JAX
-    ``record_current_batch_training_metrics``, :232-287, one device).
-    ``writer`` must be None: the scalar writer and the monitor's heartbeat
-    come with the observability slice (ROADMAP A7).  Returns the numbers of
-    the line."""
-    if writer is not None:
-        raise NotImplementedError("the scalar writer comes with the observability slice (ROADMAP A7)")
+    ``record_current_batch_training_metrics``, :232-287, one device), the
+    light monitor's heartbeat, the monitor's reading and, with a writer, the
+    ``train/*`` scalars.  Returns the numbers of the line."""
     time_cost = time.time() - start_time
     tokens = batch["input_ids"].numel()
     tgs = tokens / time_cost
@@ -189,6 +190,17 @@ def record_current_batch_training_metrics(get_tflops_func: Callable, logger_obj,
         f"lr={engine.current_lr:.4e} loss_scale={record['loss_scale']:.1f} "
         f"grad_norm={grad_norm:.5f} acc={record['acc']:.4f} perplexity={record['perplexity']:.3f} "
         f"real_tokens={record['real_tokens']} " + (f"grad_norm_groups=[{gn_str}] " if gn_str else ""))
+    # light-monitor heartbeat every 50 steps (ref train/pipeline.py:599-600)
+    send_heartbeat("TRAIN_METRICS", {"loss": loss, "tgs": round(tgs, 1), "tflops": round(tflops, 1)},
+                   step=batch_count)
+    monitor_manager.update(loss, batch_count)
+    if writer is not None:
+        writer.add_scalar("train/loss", loss, batch_count)
+        writer.add_scalar("train/tgs", tgs, batch_count)
+        writer.add_scalar("train/lr", engine.current_lr, batch_count)
+        writer.add_scalar("train/grad_norm", grad_norm, batch_count)
+        for k, v in group_norms.items():
+            writer.add_scalar(f"train/grad_norm/{k}", v, batch_count)
     return record
 
 

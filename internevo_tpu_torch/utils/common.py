@@ -81,10 +81,13 @@ class BatchSkipper:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The entry point's CLI: the root ``train.py``'s ``--config`` and
-    ``--seed``, and ``--device`` (the card unless "cpu" is asked for)."""
+    """The entry point's CLI: the root ``train.py``'s ``--config``,
+    ``--seed`` and ``--profiling``, and ``--device`` (the card unless "cpu"
+    is asked for)."""
     parser = argparse.ArgumentParser(description="InternEvo training on one device (PyTorch port)")
     parser.add_argument("--config", type=str, required=True, help="path to the python config file")
     parser.add_argument("--seed", type=int, default=1024)
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--profiling", default=False, action="store_true",
+                        help="trace batches 3-7 with torch.profiler into RUN/<JOB_NAME>/torch_trace")
     return parser.parse_args(argv)

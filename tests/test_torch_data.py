@@ -69,6 +69,20 @@ def _pair(kind):
             TRandomDataset(num_samples=80, max_len=32, fixed_seqlen=fixed))
 
 
+@pytest.mark.parametrize("fixed", [True, False], ids=["fixed", "varlen"])
+def test_random_dataset_samples_equal(fixed):
+    """The port builds each sample when it is read; every sample, its
+    length and the token types equal the JAX dataset's, which builds them
+    all up front."""
+    j, t = JRandomDataset(num_samples=600, max_len=300, fixed_seqlen=fixed), \
+        TRandomDataset(num_samples=600, max_len=300, fixed_seqlen=fixed)
+    same(j.lengths, t.lengths, "lengths")
+    assert len(j) == len(t) == 600
+    for i in range(len(j)):
+        a, b = j[i], t[i]
+        assert a == b and [type(x) for x in a["tokens"]] == [type(x) for x in b["tokens"]], i
+
+
 @pytest.mark.parametrize("kind", DATASET_KINDS)
 @pytest.mark.parametrize("cls,use_packed", [("PackedDatasetWithCut", True), ("PackedDatasetWithCut", False),
                                             ("PackedDatasetWithoutCuSeqlen", True)])

@@ -10,10 +10,11 @@ the run with a non-zero exit:
                  matmuls;
 2. build         the CUDA kernels compiled from ``internevo_tpu_torch/csrc``
                  (one nvcc per source, in parallel) and the Triton AdamW and
-                 dropout kernels JIT-compiled, with registers and spills; a CUDA
-                 source whose ``ptxas`` log shows a spill fails the run, and
-                 so does a splash or gmm kernel whose SASS holds no
-                 ``HGMMA`` (wgmma) or any ``HMMA`` (legacy mma.sync);
+                 dropout kernels JIT-compiled, with registers and spills; a
+                 wgmma source whose ``ptxas`` log shows a spill fails the
+                 run, and so does a bf16/fp16 splash or gmm kernel whose
+                 SASS holds no ``HGMMA`` (wgmma) or any ``HMMA`` (legacy
+                 mma.sync); the fp32 splash source's log is printed;
 3. kernel        the splash forward kernel against its plain version at the
                  InternLM-7B scoring shapes, bf16 on the card, five cases and
                  one planted fault the check must catch, with timings beside
@@ -132,8 +133,40 @@ the run with a non-zero exit:
                  grad norms and final params, masters and moments, bit for
                  bit; the load's seconds.
 
+24. kernel_coverage  the splash kernels at every (dtype, head dim)
+                 instantiation on one packed 4096-token row (segments of at
+                 most 2048), GQA 32/8: B1 forward and B2's dK/dV and dQ in
+                 bf16 and fp16 at head dims 16, 32, 64, 80, 96, 128 (the
+                 wgmma kernels, run on the 64- or 128-wide instantiation)
+                 and fp32 at 16, 32, 64, 128 (the CUDA-core kernels), one
+                 dropout case a dtype, each against ``plain_forward`` /
+                 ``plain_backward`` and refusing its planted faults (kv_lo +
+                 1, q_hi - 1), each timed beside its bound, its plain
+                 version and SDPA in its dtype (fp32: the math backend), one
+                 head dim a dtype also beside compiled ``flex_attention``;
+                 then gmm, gmm dgrad and tgmm in fp16 at the kernel_gmm
+                 layouts against their plain versions, a planted fault, and
+                 timed beside ``torch._grouped_mm``;
+25. demo_entry   ``python -m internevo_tpu_torch.train.main --config
+                 configs/demo.py`` (``train/main.py::main``, the file
+                 unmodified, no ``--device``): 20 steps at fp32 and head dim
+                 16 through the fp32 splash kernels and fused AdamW, no
+                 plain attention; losses and grad norms held against the
+                 same run with ``--device cpu``;
+26. fp16_training  ``configs/7B_sft.py`` with ``model.dtype`` fp16 and the
+                 depth cut to 8 layers: a 2-layer model's first-step grads
+                 (the loss scaled by the file's initial 2**16, then
+                 unscaled) against the plain attention, then 4 steps of 4
+                 packed 4096-token rows through the Trainer with the file's
+                 dynamic loss scaler: the scale trajectory, skipped steps,
+                 tokens/s, MFU, peak memory;
+27. moe_fp16_grads  the dropless MoE4 (``moe_type`` MegaBlock-D) at fp16, 2
+                 layers, full width: a forward and backward whose every gmm,
+                 gmm dgrad and tgmm call (fp16) is held against its plain
+                 version, with a planted fault each.
+
 An argument ``--only phase[,phase]`` runs the device and build phases and
-then only the named phases of 20-23 (for a first call after a change to
+then only the named phases of 20-27 (for a first call after a change to
 them; ``checkpoint_resume`` runs ``entry_training`` first); with no argument
 every phase runs.
 
@@ -176,17 +209,18 @@ from internevo_tpu_torch.ops.attention import flash_attention
 from internevo_tpu_torch.ops.cuda import build, dropout, fused_adamw, gmm
 from internevo_tpu_torch.ops.cuda import splash_attention as splash
 from internevo_tpu_torch.ops.fused_ce import fused_norm_head_ce
-from internevo_tpu_torch.solver.optimizer import tree_leaves, tree_leaves_with_path
+from internevo_tpu_torch.solver.optimizer import tree_leaves, tree_leaves_with_path, tree_map
 from internevo_tpu_torch.tools import profile_step
 from internevo_tpu_torch.tools.profile_step import (INTERNLM2_CONFIG, gshard_config, internlm2_train_config,
                                                     moe_config,
                                                     moe_train_setup, packed_batch, packed_segments, train_config,
                                                     train_setup)
+from internevo_tpu_torch.train import main as train_main
 from internevo_tpu_torch.train.main import run_training
 from internevo_tpu_torch.train.pipeline import build_model, initialize_model
 from internevo_tpu_torch.utils.storage_manager import StorageManager
-from internevo_tpu_torch.utils.common import (device_peak_bandwidth, device_peak_tflops,
-                                              get_megatron_flops)
+from internevo_tpu_torch.utils.common import (device_peak_bandwidth, device_peak_fp32_tflops,
+                                              device_peak_tflops, get_megatron_flops)
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -334,6 +368,42 @@ DISK_WRITE_BUDGET = 42 << 30
 # in one loaded leaf the fingerprint check must refuse
 ENTRY_SEED_RESUME, PLANTED_BIT_AT, FINGERPRINT_CHUNK = 4096, 12345, 1 << 24
 DISK_YARDSTICK, DISK_CHUNK = 2 << 30, 64 << 20
+# kernel_coverage: the splash instantiations (dtype: head dims) on one packed
+# 4096-token row at GQA 32/8, a dropout case at one head dim a dtype, and the
+# head dim whose cases are also timed beside compiled flex_attention
+COVERAGE_DIMS = {"bf16": (16, 32, 64, 80, 96, 128), "f16": (16, 32, 64, 80, 96, 128), "f32": (16, 32, 64, 128)}
+COVERAGE_DROPOUT = {"bf16": 80, "f16": 96, "f32": 16}
+COVERAGE_KV_HEADS, COVERAGE_FLEX_D = 8, 64
+# kernel vs plain a dtype: the relative L2 of out and of each grad, and lse's
+# largest absolute error; 10x the largest sound reading on an H100.  bf16 and
+# fp16 round P∘drop and dS to their type before the products, at the same
+# points as the plain version, from fp32 scores summed in another order;
+# fp32 rounds nothing.  The planted faults (every item's walk one tile short)
+# read far above
+# (readings: bf16 out 3.08e-3, lse 9.5e-7, grads 2.34e-4; fp16 3.85e-4,
+# 1.4e-6, 6.87e-5; fp32 3.33e-7, 9.5e-7, 1.16e-6; the planted faults
+# 0.11-0.75)
+COVERAGE_LIMITS = {"bf16": dict(out=3.1e-2, lse=1e-5, grad=2.4e-3),
+                   "f16": dict(out=3.9e-3, lse=1.4e-5, grad=7e-4),
+                   "f32": dict(out=3.4e-6, lse=1e-5, grad=1.2e-5)}
+# gmm in fp16 vs its plain version: relative L2, 10x the largest sound
+# reading (9.1e-5, the w2 forward and w1 dgrad; the two sum exact fp16
+# products in fp32 in another order and round once); a group end one row
+# off reads 1.6e-2
+FP16_GMM_REL_L2 = 9.1e-4
+# demo_entry: configs/demo.py on the card vs --device cpu from the same
+# initial params, step by step over 20 steps: losses and grad norms
+# relative, both fp32 (TF32 off), 10x the largest sound reading (7.0e-8 and
+# 1.0e-7, an ulp or so, on an H100); the first loss is ln(vocab) = ln(1024)
+# at random init
+DEMO_CONFIG, DEMO_LOSS_RTOL, DEMO_GNORM_RTOL = REPO / "configs" / "demo.py", 7e-7, 1e-6
+# fp16_training: configs/7B_sft.py at fp16 (no shipped file sets fp16), cut
+# to 8 layers as training; its first-step grads held at 2 layers: relative
+# L2 per leaf, 10x the largest sound reading (1.23e-3 on an H100; bf16's
+# train_grads reads ~10x more)
+FP16_TRAIN_LAYERS, FP16_GRAD_LAYERS, FP16_GRAD_REL_L2 = 8, 2, 1.3e-2
+# moe_fp16_grads: 2 layers of the dropless MoE4 at fp16
+MOE_FP16_LAYERS = 2
 
 
 def emit(obj) -> None:
@@ -405,25 +475,37 @@ def phase_device():
 def sass_mma_counts(source: str) -> dict:
     """{kernel: [HGMMA, HMMA]}: the wgmma and the legacy mma.sync
     instructions in each entry function of a built library, from
-    ``cuobjdump -sass``."""
-    cuobjdump = str(Path(build.find_nvcc()).with_name("cuobjdump"))
-    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(source))], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
+    ``cuobjdump -sass``; each instantiation by its name as ``cu++filt``
+    gives it (mangled where the toolkit has no ``cu++filt``)."""
+    tools = Path(build.find_nvcc()).parent
+    sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(build.library_path(source))], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
     counts, fn = {}, None
     for ln in sass.splitlines():
-        m = re.search(r"Function : \S*?\d([a-z_]+_kernel)I", ln)
+        m = re.search(r"Function : (\S+)", ln)
         if m:
-            fn = m.group(1) + ("<64>" if "ILi64E" in ln else "<128>" if "ILi128E" in ln else "")
-            fn += "<float>" if "IfE" in ln else "<bf16>" if "I13__nv_bfloat16E" in ln else ""
+            fn = m.group(1)
             counts[fn] = [0, 0]
         elif fn is not None:
             counts[fn][0] += "HGMMA" in ln
             counts[fn][1] += " HMMA" in ln
+    filt = tools / "cu++filt"
+    if filt.exists() and counts:
+        names = subprocess.run([str(filt)], input="\n".join(counts), capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(counts):
+            counts = {re.sub(r"\(anonymous namespace\)::", "", n): v for n, v in zip(names, counts.values())}
     return counts
 
 
+# the wgmma sources: each entry must issue HGMMA and no HMMA, and no spill
+# is taken (a spill serialises their mainloops); the fp32 splash kernels run
+# on the CUDA cores
+WGMMA_SOURCES = (splash.SOURCE, splash.BWD_SOURCE, gmm.SOURCE)
+
+
 def phase_build(dev):
-    sources = (splash.SOURCE, splash.BWD_SOURCE, gmm.SOURCE)
+    sources = (*WGMMA_SOURCES, splash.F32_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         logs = list(pool.map(lambda src: build.build(src)[1], sources))
@@ -433,11 +515,11 @@ def phase_build(dev):
     spilled, legacy = [], {}
     for src, log in zip(sources, logs):
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        # the splash and grouped-matmul kernels are wgmma kernels: each entry
-        # must issue HGMMA and no HMMA
-        mma = sass_mma_counts(src)
+        mma = sass_mma_counts(src) if src in WGMMA_SOURCES else None
         emit({"phase": "build", "source": f"internevo_tpu_torch/csrc/{src}", "seconds": cuda_s,
               "ptxas": ptxas, "sass_hgmma_hmma": mma})
+        if src not in WGMMA_SOURCES:
+            continue
         # a spill serialises the wgmma mainloop (ptxas C7514/C7518): refuse it
         if any(int(b) for ln in ptxas for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)):
             spilled.append(src)
@@ -449,7 +531,7 @@ def phase_build(dev):
     n = 2 * fused_adamw.BLOCK
     f32 = [torch.zeros(n, device=dev) for _ in range(4)]
     sc = fused_adamw.adamw_scalars(0, 0.9, 0.95, 1, 1, 1e-8, 0, 1, 0, dev)
-    for dtype in (torch.bfloat16, torch.float32):  # the param dtypes of the training path
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):  # the param dtypes of the training paths
         t0 = time.perf_counter()
         handle = fused_adamw.launch(*f32, torch.zeros(n, dtype=dtype, device=dev), sc)
         torch.cuda.synchronize()
@@ -718,6 +800,10 @@ def phase_serving(model, params, dev, phase="serving", greedy_prompts=GREEDY_PRO
         raise AssertionError(f"{outside} sampled tokens outside their top-k/top-p set")
 
 
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
 def grads_close(got, want) -> dict:
     d = (got.float() - want.float()).abs()
     return {"max_abs_err": float(d.max()),
@@ -835,7 +921,7 @@ def flex_backward(qt, kt, vt, seg, dot, want) -> dict:
     the masked blocks as the kernels do; its backward alone is timed, as
     SDPA's.  (B, H, S, D) leaves; its grads are held loosely against
     ``want``, the plain (dq, dk, dv), only to show it computes the same
-    function.  The port never calls it."""
+    function (a None in ``want`` is not compared).  The port never calls it."""
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
     def same_run_causal(b, h, qi, ki):
@@ -848,7 +934,8 @@ def flex_backward(qt, kt, vt, seg, dot, want) -> dict:
     grads = torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
     torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
-    rel = [float((g.transpose(1, 2).float() - w.float()).norm() / w.float().norm()) for g, w in zip(grads, want)]
+    rel = [None if w is None else float((g.transpose(1, 2).float() - w.float()).norm() / w.float().norm())
+           for g, w in zip(grads, want)]
     del grads
     ms = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), warmup=2, reps=5)
     return {"library_flex_ms": ms, "library_flex": "torch.compile(flex_attention) backward alone, block mask "
@@ -914,12 +1001,18 @@ def phase_kernel_adamw(dev):
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": worst_err, **b}
 
 
-def phase_train_grads(dev):
-    """Every param grad of a 2-layer model at 7B width, one packed row:
-    the kernel path against plain attention under autograd."""
-    model, params = initialize_model(train_config(2), dev, torch.Generator(device=dev).manual_seed(SEED + 7))
+def phase_train_grads(dev, config=None, seed=SEED + 7, phase="train_grads", limit=GRAD_REL_L2):
+    """Every param grad of a 2-layer model at 7B width (``config``, default
+    ``train_config(2)``), one packed row: the kernel path against plain
+    attention under autograd.  With an fp16 model the loss is scaled by the
+    config's initial loss scale and the grads unscaled, as the trainer's
+    first step does.  The splash kernels must launch once a layer each, at
+    the model's dtype and head dim."""
+    config = config if config is not None else train_config(2)
+    model, params = initialize_model(config, dev, torch.Generator(device=dev).manual_seed(seed))
     cfg = model.config
-    batch = packed_batch((TRAIN_B,), TRAIN_S, 0, cfg.vocab_size, np.random.RandomState(SEED + 7), dev)
+    scale = float(config.grad_scaler.fp16.initial_scale) if cfg.dtype == torch.float16 else 1.0
+    batch = packed_batch((TRAIN_B,), TRAIN_S, 0, cfg.vocab_size, np.random.RandomState(seed), dev)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -930,29 +1023,30 @@ def phase_train_grads(dev):
         nll, n, _ = fused_norm_head_ce(hidden, params["norm"], params["head"]["weight"], batch["labels"],
                                        eps=cfg.layer_norm_epsilon, embed_grad_scale=cfg.embed_grad_scale)
         loss = nll / n
-        loss.backward()
-        out = [p.grad for p in leaves]
+        (loss * scale).backward()
+        out = [p.grad.float() / scale for p in leaves]
         for p in leaves:
             p.grad = None
         return float(loss.detach()), out
 
-    counts = (splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq)
+    splash.launches_by_case.clear()
     loss_k, g_kernel = grads()
     torch.cuda.synchronize()
-    launched = tuple(a - b for a, b in zip((splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq),
-                                           counts))
+    launched = dict(splash.launches_by_case)
     loss_p, g_plain = grads(plain_block(cfg, batch, train=True))
-    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
-           for a, b in zip(g_kernel, g_plain)]
-    finite = all(bool(torch.isfinite(a.float()).all()) for a in g_kernel)
+    rel = [rel_l2(a, b) for a, b in zip(g_kernel, g_plain)]
+    finite = all(bool(torch.isfinite(a).all()) for a in g_kernel)
     worst = int(np.argmax(rel))
-    emit({"phase": "train_grads", "layers": cfg.num_layers, "hidden": cfg.hidden_size, "tokens": TRAIN_S,
+    emit({"phase": phase, "case": "first-step grads vs plain attention", "dtype": str(cfg.dtype),
+          "layers": cfg.num_layers, "hidden": cfg.hidden_size, "tokens": TRAIN_S, "loss_scale": scale,
           "leaves": len(rel), "loss_kernel": loss_k, "loss_plain": loss_p, "max_rel_l2": rel[worst],
-          "worst_leaf": worst, "median_rel_l2": float(np.median(rel)), "bound": GRAD_REL_L2,
-          "launches_fwd_dkdv_dq": list(launched), "finite": finite})
-    if launched != (cfg.num_layers,) * 3:
-        raise AssertionError(f"kernel launches {launched}: want {cfg.num_layers} of each")
-    if not finite or not rel[worst] <= GRAD_REL_L2:
+          "worst_leaf": worst, "median_rel_l2": float(np.median(rel)), "bound": limit,
+          "launches_by_case": {"/".join(map(str, k)): v for k, v in launched.items()}, "finite": finite})
+    D = cfg.hidden_size // cfg.num_attention_heads
+    want = {(k, splash.DTYPES[cfg.dtype], D): cfg.num_layers for k in ("fwd", "bwd_dkdv", "bwd_dq")}
+    if launched != want:
+        raise AssertionError(f"kernel launches {launched}: want {want}")
+    if not finite or not rel[worst] <= limit:
         raise AssertionError(f"kernel-path grads vs plain attention: relative L2 {rel[worst]} (leaf {worst})")
     del model, params, leaves, g_kernel, g_plain
 
@@ -2020,7 +2114,8 @@ def phase_entry_training(dev, folder: Path, layers: int) -> dict:
           "data_path": "RandomDataset -> PackedDatasetWithCut -> StaticBatchSampler -> packed_collate_fn",
           "micro_num": data.micro_num, "micro_bsz": data.micro_bsz, "packed_length": data.packed_length,
           "valid_every": data.valid_every, "params": n_params, "checkpoint_bytes_at_14": 14 * n_params,
-          "leaves": leaves, "setup_s": out["setup_s"], "steps": steps, "losses": losses,
+          "leaves": leaves, "setup_s": out["setup_s"], "staging_alloc_s": out["staging_s"], "steps": steps,
+          "losses": losses,
           "moe_losses": [r["moe_loss"] for r in recs], "grad_norms": [r["grad_norm"] for r in recs],
           "lrs": [r["lr"] for r in recs], "step_s": [r["time_cost"] for r in recs],
           "steps_paying_a_save": sorted(paid), "step_s_median_2_51_without_saves": step_s,
@@ -2112,6 +2207,526 @@ def phase_checkpoint_resume(dev, folder: Path, layers: int, first: dict) -> dict
     return {"fwd": total[0], "dkdv": total[1], "dq": total[2], "adamw": total[4]}
 
 
+# ---------------------------------------------------------------- slice 11
+
+
+def coverage_peak(dtype) -> float:
+    """The peak rate of a splash instantiation's operations: the tensor
+    cores' for bf16 and fp16, the CUDA cores' fp32 FMAs for fp32."""
+    return device_peak_fp32_tflops() if dtype == torch.float32 else device_peak_tflops()
+
+
+def sdpa_library(q, k, v, seg, dtype):
+    """SDPA in q's dtype (fp32: the math backend) with the (causal ∧ same
+    segment) bool mask, k and v repeated to q's heads: (forward ms under
+    no_grad, backward-alone ms), the yardstick of a splash case."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rep = q.shape[2] // k.shape[2]
+    (qt, kt, vt), mask = sdpa_inputs(q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2), seg)
+    ctx = sdpa_kernel(SDPBackend.MATH) if dtype == torch.float32 else contextlib.nullcontext()
+    with ctx:
+        with torch.no_grad():
+            fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 1, 5)
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dot = torch.randn_like(o)
+        bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), 1, 5)
+    return fwd_ms, bwd_ms, (qt.detach(), kt.detach(), vt.detach())
+
+
+def coverage_case(dev, g, seg, name, D, rate) -> dict:
+    """One splash instantiation: B1 and B2 against the plain versions, the
+    planted faults refused, and (without dropout) timings beside the bound,
+    the plain versions and SDPA."""
+    dtype = {v: k for k, v in splash.DTYPES.items()}[name]
+    lim = COVERAGE_LIMITS[name]
+    S = seg.shape[1]
+    q = torch.randn(TRAIN_B, S, HEADS, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(TRAIN_B, S, COVERAGE_KV_HEADS, D, generator=g, device=dev).to(dtype) for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    seed = splash._norm_seed([1234, 0, 0, 0, 0]) if rate else None
+    scale = D**-0.5
+    fwd_args = (q, k, v, seg, None, scale, True, False, rate, seed)
+    call = splash.ForwardCall(*fwd_args)
+    call.launch()
+    torch.cuda.synchronize()
+    ro, rl = splash.plain_forward(q, k, v, seg, None, scale, True, rate, seed)
+    empty = torch.isneginf(rl)
+    r = {"dtype": name, "head_dim": D, "dropout": rate,
+         "out_rel_l2": rel_l2(call.out, ro), "out_max_abs_err": float((call.out.float() - ro.float()).abs().max()),
+         "lse_max_abs_err": float((call.lse - rl)[~empty].abs().max()),
+         "empty_rows_agree": bool(torch.equal(torch.isneginf(call.lse), empty)),
+         "finite": bool(torch.isfinite(call.out.float()).all())}
+    planted = splash.ForwardCall(*fwd_args)
+    planted.segs[2].add_(1)  # kv_lo: every item's walk starts a tile late
+    planted.launch()
+    torch.cuda.synchronize()
+    r["planted_kv_lo_rel_l2"] = rel_l2(planted.out, ro)
+    del planted, call
+    bwd_args = (q, k, v, ro, rl, do, None, seg, None, scale, True)
+    bwd = splash.BackwardCall(*bwd_args, False, rate, seed)
+    bwd.launch_dkdv()
+    bwd.launch_dq()
+    torch.cuda.synchronize()
+    want = splash.plain_backward(*bwd_args, rate, seed)
+    got = (bwd.dq, bwd.dk, bwd.dv)
+    for n, a, b in zip(("dq", "dk", "dv"), got, want):
+        r[f"{n}_rel_l2"] = rel_l2(a, b)
+        r[f"{n}_max_abs_err"] = float((a.float() - b.float()).abs().max())
+        r["finite"] = r["finite"] and bool(torch.isfinite(a.float()).all())
+    planted = splash.BackwardCall(*bwd_args, False, rate, seed)
+    planted.segs[2].add_(1)  # kv_lo: dQ's walk starts a tile late
+    planted.segs[3].sub_(1)  # q_hi: dK/dV's walk ends a tile early
+    planted.launch_dkdv()
+    planted.launch_dq()
+    torch.cuda.synchronize()
+    for n, a, b in zip(("dq", "dk", "dv"), (planted.dq, planted.dk, planted.dv), want):
+        r[f"planted_{n}_rel_l2"] = rel_l2(a, b)
+    del planted
+    r["held"] = (r["out_rel_l2"] <= lim["out"] and r["lse_max_abs_err"] <= lim["lse"] and r["empty_rows_agree"]
+                 and r["finite"] and all(r[f"{n}_rel_l2"] <= lim["grad"] for n in ("dq", "dk", "dv")))
+    r["planted_refused"] = (r["planted_kv_lo_rel_l2"] > lim["out"]
+                            and all(r[f"planted_{n}_rel_l2"] > lim["grad"] for n in ("dq", "dk", "dv")))
+    if not rate:
+        flops = attention_flops(seg.cpu().numpy(), HEADS, D)  # the function's work at its own head dim
+        peak = coverage_peak(dtype)
+        lse_bytes = 4 * TRAIN_B * HEADS * S
+        r["fwd"] = {"ms": cuda_time_ms(splash.ForwardCall(*fwd_args).launch),
+                    "plain_ms": cuda_time_ms(lambda: splash.plain_forward(q, k, v, seg, None, scale), 1, 3),
+                    **bound(flops, nbytes(q, k, v, seg) + nbytes(q) + lse_bytes, peak)}
+        timed = splash.BackwardCall(*bwd_args, False, 0.0, None)
+        plain_bwd_ms = cuda_time_ms(lambda: splash.plain_backward(*bwd_args), 1, 3)
+        reads = nbytes(q, k, v, do, seg) + 2 * lse_bytes
+        r["bwd_dkdv"] = {"ms": cuda_time_ms(timed.launch_dkdv), "plain_ms": plain_bwd_ms,
+                         **bound(2 * flops, reads + nbytes(k, v), peak)}
+        r["bwd_dq"] = {"ms": cuda_time_ms(timed.launch_dq), "plain_ms": plain_bwd_ms,
+                       **bound(0.5 * flops, nbytes(q), peak)}
+        del timed
+        lib_fwd, lib_bwd, sdpa_leaves = sdpa_library(q, k, v, seg, dtype)
+        r["fwd"]["library_ms"], r["bwd_dkdv"]["library_ms"] = lib_fwd, lib_bwd
+        r["bwd_dq"]["library_ms"] = lib_bwd
+        r["library"] = ("scaled_dot_product_attention" + (" (math backend)" if dtype == torch.float32 else "")
+                        + " with a bool mask, k/v repeated to 32 heads; backward alone")
+        if D == COVERAGE_FLEX_D:
+            qt, kt, vt = sdpa_leaves
+            r["fwd"].update(flex_forward(qt, kt, vt, seg, ro))
+            qt, kt, vt = (t.clone().requires_grad_() for t in sdpa_leaves)
+            # k and v repeated to the q heads: only dq compares with the plain grads
+            flex = flex_backward(qt, kt, vt, seg, do.transpose(1, 2).contiguous(), (want[0], None, None))
+            r["bwd_dkdv"]["library_flex_ms"] = r["bwd_dq"]["library_flex_ms"] = flex["library_flex_ms"]
+            r["library_flex_compile_s"] = [r["fwd"].pop("library_flex_compile_s"), flex["library_flex_compile_s"]]
+        del sdpa_leaves
+    return r
+
+
+def coverage_gmm(dev) -> dict:
+    """gmm, gmm dgrad and tgmm with fp16 operands against their plain
+    versions at ``GMM_CASES``'s layouts in both directions of the expert MLP;
+    a planted fault (the first group end one row on) each must refuse; the
+    balanced w1 calls timed beside their bound, plain version and
+    ``torch._grouped_mm`` in fp16 where it takes fp16."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    H, M, E = GMM_H, GMM_M, GMM_E
+    f16 = torch.float16
+    n_max = max(n for n, _ in GMM_CASES.values())
+    hf = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g, device=dev) * scale).to(f16)  # noqa: E731
+    x, hm, dy_m, dy_h = hf(n_max, H), hf(n_max, M), hf(n_max, M), hf(n_max, H)
+    w1, w2 = hf(E, H, M, scale=0.02), hf(E, M, H, scale=0.02)
+    worst = {k: 0.0 for k in ("gmm", "gmm_dgrad", "tgmm")}
+    worst_abs = dict(worst)
+    for case, (n, sizes) in GMM_CASES.items():
+        gs = torch.tensor(sizes, device=dev)
+        calls = {"gmm_w1": ("gmm", lambda: gmm.gmm(x[:n], w1, gs), lambda: gmm.plain_gmm(x[:n], w1, gs)),
+                 "gmm_w2": ("gmm", lambda: gmm.gmm(hm[:n], w2, gs), lambda: gmm.plain_gmm(hm[:n], w2, gs)),
+                 "dgrad_w1": ("gmm_dgrad", lambda: gmm.gmm(dy_m[:n], w1, gs, transpose_rhs=True),
+                              lambda: gmm.plain_gmm(dy_m[:n], w1, gs, transpose_rhs=True)),
+                 "dgrad_w2": ("gmm_dgrad", lambda: gmm.gmm(dy_h[:n], w2, gs, transpose_rhs=True),
+                              lambda: gmm.plain_gmm(dy_h[:n], w2, gs, transpose_rhs=True)),
+                 "tgmm_w1": ("tgmm", lambda: gmm.tgmm(x[:n], dy_m[:n], gs, E, f16),
+                             lambda: gmm.plain_tgmm(x[:n], dy_m[:n], gs, E, f16)),
+                 "tgmm_w2": ("tgmm", lambda: gmm.tgmm(hm[:n], dy_h[:n], gs, E, f16),
+                             lambda: gmm.plain_tgmm(hm[:n], dy_h[:n], gs, E, f16))}
+        checks = {}
+        for cname, (cls, kernel, plain) in calls.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            checks[cname] = {"rel_l2": rel_l2(got, want), "max_abs_err": float((got.float() - want.float()).abs().max()),
+                             "finite": bool(torch.isfinite(got.float()).all()), "dtype": str(got.dtype)}
+            worst[cls] = max(worst[cls], checks[cname]["rel_l2"])
+            worst_abs[cls] = max(worst_abs[cls], checks[cname]["max_abs_err"])
+            del got, want
+        emit({"phase": "kernel_coverage", "case": f"gmm fp16 {case}", "rows": n, "group_sizes": sizes, **checks})
+        bad = [c for c, r in checks.items() if not r["finite"] or not r["rel_l2"] <= FP16_GMM_REL_L2
+               or r["dtype"] != str(f16)]
+        if bad:
+            raise AssertionError(f"fp16 {case}: gmm kernels {bad} disagree with their plain versions: {checks}")
+    n, sizes = GMM_CASES["balanced"]
+    xb, dyb = x[:n], dy_m[:n]
+    gs = torch.tensor(sizes, device=dev)
+    planted = {}
+    for cname, call, plain in (("gmm", gmm.GmmCall(xb, w1, gs), lambda: gmm.plain_gmm(xb, w1, gs)),
+                               ("gmm_dgrad", gmm.GmmCall(dyb, w1, gs, transpose_rhs=True),
+                                lambda: gmm.plain_gmm(dyb, w1, gs, transpose_rhs=True)),
+                               ("tgmm", gmm.TgmmCall(xb, dyb, gs, E, f16), lambda: gmm.plain_tgmm(xb, dyb, gs, E, f16))):
+        call.ends[0] += 1
+        call.launch()
+        torch.cuda.synchronize()
+        rl = rel_l2(call.out, plain())
+        planted[cname] = {"rel_l2": rl, "refused": not rl <= FP16_GMM_REL_L2}
+    emit({"phase": "kernel_coverage", "case": "gmm fp16 planted fault: first group end + 1", **planted})
+    if not all(r["refused"] for r in planted.values()):
+        raise AssertionError(f"the fp16 gmm check let a group end one row off through: {planted}")
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    out = {}
+    for cname, a, w, trans in (("gmm", xb, w1, False), ("gmm_dgrad", dyb, w1, True)):
+        Kc, Fo = a.shape[1], (w.shape[1] if trans else w.shape[2])
+        lib = library_grouped_mm(a, w.transpose(1, 2) if trans else w, offs, f16)
+        out[cname] = {"ms": cuda_time_ms(gmm.GmmCall(a, w, gs, transpose_rhs=trans).launch),
+                      "plain_ms": cuda_time_ms(lambda: gmm.plain_gmm(a, w, gs, transpose_rhs=trans), 1, 3),
+                      "library_ms": cuda_time_ms(lib) if lib is not None else None,
+                      **bound(2.0 * n * Kc * Fo, nbytes(a) + E * Kc * Fo * 2 + n * Fo * 2)}
+    lib = library_grouped_mm(xb.t(), dyb, offs, f16)
+    out["tgmm"] = {"ms": cuda_time_ms(gmm.TgmmCall(xb, dyb, gs, E, f16).launch),
+                   "plain_ms": cuda_time_ms(lambda: gmm.plain_tgmm(xb, dyb, gs, E, f16), 1, 3),
+                   "library_ms": cuda_time_ms(lib) if lib is not None else None,
+                   **bound(2.0 * n * H * M, nbytes(xb, dyb) + E * H * M * 2)}
+    for cname, r in out.items():
+        r.update(rel_l2=worst[cname], max_abs_err=worst_abs[cname],
+                 library=(GROUPED_MM + " (fp16)") if r["library_ms"] is not None
+                 else "none: torch._grouped_mm did not take fp16 operands here")
+        emit({"phase": "kernel_coverage", "case": f"timing {cname} fp16 balanced w1", **r})
+    del x, hm, dy_m, dy_h, w1, w2
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernel_coverage(dev) -> dict:
+    """Every splash instantiation of ``COVERAGE_DIMS`` (and the dropout
+    cases) on one packed 4096-token row, then gmm/tgmm in fp16.  Returns
+    {(kernel, dtype, D): numbers} for the kernels line."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    seg = torch.from_numpy(packed_segments(TRAIN_B, TRAIN_S, MAX_SEG, 0, np.random.RandomState(SEED + 20))[0]).to(dev)
+    out = {}
+    for name, dims in COVERAGE_DIMS.items():
+        for D in dims:
+            for rate in (0.0, 0.1) if D == COVERAGE_DROPOUT[name] else (0.0,):
+                r = coverage_case(dev, g, seg, name, D, rate)
+                emit({"phase": "kernel_coverage", "case": f"splash {name} D={D} dropout {rate}",
+                      "shape_q": [TRAIN_B, TRAIN_S, HEADS, D], "kv_heads": COVERAGE_KV_HEADS,
+                      "limits": COVERAGE_LIMITS[name], **r})
+                if not r["held"]:
+                    raise AssertionError(f"splash {name} D={D} dropout {rate}: kernels disagree with the plain "
+                                         f"versions: {r}")
+                if not r["planted_refused"]:
+                    raise AssertionError(f"splash {name} D={D} dropout {rate}: a planted fault got through: {r}")
+                for kname, err in (("fwd", r["out_max_abs_err"]), ("bwd_dkdv", max(r["dk_max_abs_err"],
+                                                                                   r["dv_max_abs_err"])),
+                                   ("bwd_dq", r["dq_max_abs_err"])):
+                    entry = out.setdefault((kname, name, D), {"max_abs_err": 0.0})
+                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                    if kname in r:
+                        entry.update(r[kname])
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kname, r in coverage_gmm(dev).items():
+        out[(kname, "f16", None)] = r
+    return out
+
+
+def phase_demo_entry(dev) -> dict:
+    """``python -m internevo_tpu_torch.train.main --config configs/demo.py``
+    in-process (``train/main.py::main``, no ``--device``): 20 steps through
+    the fp32 splash kernels at head dim 16 and fused AdamW on fp32 leaves,
+    the plain attention never called; then the same run with ``--device
+    cpu`` from the card run's initial params (the card's and the CPU's
+    generators draw different numbers from one seed), and the two held
+    step by step."""
+    runs, initial = [], {}
+    init = train_main.initialize_model
+
+    def recorded(*args, **kw):
+        runs.append(run_training(*args, **kw))
+        return runs[-1]
+
+    def captured(config, device, generator):
+        model, params = init(config, device, generator)
+        initial["params"] = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+        return model, params
+
+    plain_calls = {"plain_forward": 0, "plain_backward": 0}
+    originals = {n: getattr(splash, n) for n in plain_calls}
+
+    def counting(n):
+        def call(*args, **kw):
+            plain_calls[n] += 1
+            return originals[n](*args, **kw)
+        return call
+
+    zero_counts()
+    splash.launches_by_case.clear()
+    train_main.run_training, train_main.initialize_model = recorded, captured
+    for n in plain_calls:
+        setattr(splash, n, counting(n))
+    t0 = time.perf_counter()
+    try:
+        train_main.main(["--config", str(DEMO_CONFIG)])
+        torch.cuda.synchronize()
+    finally:
+        train_main.run_training, train_main.initialize_model = run_training, init
+        for n, f in originals.items():
+            setattr(splash, n, f)
+    card_s = time.perf_counter() - t0
+    by_case = dict(splash.launches_by_case)
+    total = kernel_counts()
+    card = runs[0]
+    t0 = time.perf_counter()
+    cpu = run_training(DEMO_CONFIG, params=initial["params"], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    cfg = card["model"].config
+    D = cfg.hidden_size // cfg.num_attention_heads
+    lc, lp = [r["loss"] for r in card["records"]], [r["loss"] for r in cpu["records"]]
+    gn_card, gn_cpu = [r["grad_norm"] for r in card["records"]], [r["grad_norm"] for r in cpu["records"]]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(lc, lp)]
+    gnorm_rel = [abs(a - b) / abs(b) for a, b in zip(gn_card, gn_cpu)]
+    steps = len(lc)
+    leaves = len(tree_leaves(card["engine"].params))
+    micro = card["config"].data.micro_num
+    want = {("fwd", "f32", D): steps * cfg.num_layers * micro, ("bwd_dkdv", "f32", D): steps * cfg.num_layers * micro,
+            ("bwd_dq", "f32", D): steps * cfg.num_layers * micro}
+    emit({"phase": "demo_entry", "command": "python -m internevo_tpu_torch.train.main --config configs/demo.py",
+          "dtype": str(cfg.dtype), "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+          "heads": cfg.num_attention_heads, "head_dim": D, "steps": steps, "losses_card": lc, "losses_cpu": lp,
+          "grad_norms_card": gn_card, "grad_norms_cpu": gn_cpu, "loss_rel_diff": loss_rel,
+          "grad_norm_rel_diff": gnorm_rel,
+          "limits": {"loss_rtol": DEMO_LOSS_RTOL, "grad_norm_rtol": DEMO_GNORM_RTOL},
+          "first_loss_minus_ln_vocab": lc[0] - math.log(cfg.vocab_size), "card_s": card_s, "cpu_s": cpu_s,
+          "launches_by_case": {"/".join(map(str, k)): v for k, v in by_case.items()},
+          "launches_fwd_dkdv_dq_dropout_adamw": list(total), "plain_calls": plain_calls,
+          "tokens_per_s_card": float(np.median([r["tgs"] for r in card["records"][1:]]))})
+    if steps != 20 or {k: by_case.get(k, 0) for k in want} != want or total[4] != steps * leaves:
+        raise AssertionError(f"demo: {steps} steps, launches {by_case}, adamw {total[4]}: want 20, {want}, "
+                             f"{steps * leaves}")
+    if any(plain_calls.values()) or set(by_case) != set(want):
+        raise AssertionError(f"demo: the plain attention ran {plain_calls} or other kernels launched {by_case}")
+    if not abs(lc[0] - math.log(cfg.vocab_size)) < 0.05 or not lc[-1] < lc[0]:
+        raise AssertionError(f"demo losses {lc}: the first is not ln(vocab) or the loss did not fall")
+    if not (max(loss_rel) <= DEMO_LOSS_RTOL and max(gnorm_rel) <= DEMO_GNORM_RTOL):
+        raise AssertionError(f"demo on the card left the CPU run: losses {loss_rel}, grad norms {gnorm_rel}")
+    del runs, card, cpu
+    return {"by_case": by_case, "adamw": total[4]}
+
+
+def fp16_config(layers: int) -> Config:
+    config = train_config(layers)
+    config.model.dtype = "torch.float16"
+    return config
+
+
+def expected_scales(found_inf: list, scaler) -> list:
+    """The loss scale at each step under the dynamic scaler's rules (backoff
+    once an overflow brings the hysteresis count to its limit, growth after
+    ``growth_interval`` clean steps, which resets the hysteresis count), from
+    the first step's scale: ``solver/optimizer.py``'s rules replayed on the
+    host."""
+    scale, hyst, growth, out = float(scaler.fp16.initial_scale), 0, 0, []
+    for inf in found_inf:
+        out.append(scale)
+        if inf:
+            hyst, growth = hyst + 1, 0
+            if hyst >= scaler.hysteresis:
+                scale = max(scale * scaler.backoff_factor, float(scaler.fp16.min_scale))
+        else:
+            growth += 1
+            if growth >= scaler.fp16.growth_interval:
+                scale, growth, hyst = min(scale * scaler.growth_factor, float(scaler.max_scale)), 0, 0
+    return out
+
+
+def phase_fp16_training(dev) -> dict:
+    """``configs/7B_sft.py`` at fp16: the first step's grads of a 2-layer
+    model (scaled by the file's initial loss scale, unscaled) through the
+    kernels against the plain attention; then the 8-layer model, 4 steps of
+    4 packed 4096-token rows through the Trainer with the dynamic scaler."""
+    phase_train_grads(dev, fp16_config(FP16_GRAD_LAYERS), SEED + 22, "fp16_training", FP16_GRAD_REL_L2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    config, model, params, trainer, batch = train_setup(dev, SEED + 23, fp16_config(FP16_TRAIN_LAYERS))
+    cfg, data = model.config, config.data
+    micro_num, tokens = data.micro_num, data.micro_num * data.micro_bsz * data.seq_len
+    leaves = tree_leaves(params)
+    zero_counts()
+    splash.launches_by_case.clear()
+    recs, times = [], []
+    for step in range(1, TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.execute_schedule(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        recs.append({"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "loss_scale": float(m["loss_scale"]), "found_inf": bool(m["found_inf"]),
+                     "n_tokens": int(m["n_tokens"]), "step_s": times[-1]})
+        emit({"phase": "fp16_training", **recs[-1]})
+    by_case = dict(splash.launches_by_case)
+    total = kernel_counts()
+    L = cfg.num_layers
+    clean = [r for r in recs if not r["found_inf"]]
+    step_s = float(np.median(times[1:]))
+    tflops = get_megatron_flops(step_s, checkpoint=cfg.checkpoint > 0, seq_len=data.seq_len,
+                                hidden_size=cfg.hidden_size, num_layers=L, vocab_size=cfg.vocab_size,
+                                global_batch_size=micro_num * data.micro_bsz, mlp_ratio=cfg.mlp_ratio)
+    scales = [r["loss_scale"] for r in recs]
+    want_scales = expected_scales([r["found_inf"] for r in recs], config.grad_scaler)
+    emit({"phase": "fp16_training", "model": "configs/7B_sft.py", "dtype": str(cfg.dtype), "layers": L,
+          "cut": "num_layers 32 -> 8 (as training); model.dtype bf16 -> fp16 (no shipped file trains in fp16)",
+          "params": sum(p.numel() for p in leaves), "micro_num": micro_num, "tokens_per_step": tokens,
+          "losses": [r["loss"] for r in recs], "loss_scales": scales, "expected_loss_scales": want_scales,
+          "skipped_steps": [r["step"] for r in recs if r["found_inf"]], "step_s": times,
+          "step_s_median_2_4": step_s, "tokens_per_s": tokens / step_s, "tflops_megatron": tflops,
+          "mfu": tflops / device_peak_tflops(), "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches_by_case": {"/".join(map(str, k)): v for k, v in by_case.items()},
+          "launches_fwd_dkdv_dq_dropout_adamw": list(total)})
+    per = TRAIN_STEPS * L * micro_num
+    want = {("fwd", "f16", 128): per, ("bwd_dkdv", "f16", 128): per, ("bwd_dq", "f16", 128): per}
+    if by_case != want or total[4] != TRAIN_STEPS * len(leaves):
+        raise AssertionError(f"fp16 training launches {by_case}, adamw {total[4]}: want {want}, "
+                             f"{TRAIN_STEPS * len(leaves)}")
+    if scales != want_scales or not clean or not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"fp16 training: scales {scales} (want {want_scales}), records {recs}")
+    if any(r["n_tokens"] != tokens for r in recs) or not all(math.isfinite(r["grad_norm"]) for r in clean):
+        raise AssertionError(f"fp16 training records {recs}")
+    if len(clean) > 1 and not clean[-1]["loss"] < clean[0]["loss"]:
+        raise AssertionError(f"fp16 training: the loss did not fall over the clean steps {clean}")
+    del trainer, model, params, leaves, batch
+    return {"by_case": by_case, "adamw": total[4]}
+
+
+def phase_moe_fp16_grads(dev) -> dict:
+    """The dropless MoE4 at fp16, 2 layers, full width, one packed row: a
+    forward and backward through the kernels (the launches counted), then the
+    same pass with every gmm, gmm dgrad and tgmm call held against its plain
+    version on its own inputs, with a planted fault each."""
+    config = moe_config(MOE_FP16_LAYERS)
+    config.model.dtype = "torch.float16"
+    scale = float(config.grad_scaler.fp16.initial_scale)
+    model, params = initialize_model(config, dev, torch.Generator(device=dev).manual_seed(SEED + 24))
+    cfg = model.config
+    batch = packed_batch((TRAIN_B,), TRAIN_S, 0, cfg.vocab_size, np.random.RandomState(SEED + 24), dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def step():
+        loss, _ = moe_loss_of(model, params, batch, None, config.loss.moe_loss_coeff, train=True)
+        (loss * scale).backward()
+        out = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return out
+
+    zero_counts()
+    gmm.launches_by_case.clear()
+    grads = step()
+    torch.cuda.synchronize()
+    by_case = dict(gmm.launches_by_case)
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in grads)
+    del grads
+
+    records = []
+    kernel_gmm, kernel_tgmm = gmm.gmm, gmm.tgmm
+
+    def held(kind, got, want, planted_call):
+        planted_call.ends[0] += 1
+        planted_call.launch()
+        records.append({"kind": kind, "shape": list(got.shape), "dtype": str(got.dtype),
+                        "rel_l2": rel_l2(got, want), "planted_rel_l2": rel_l2(planted_call.out, want)})
+
+    def held_gmm_call(x, w, group_sizes, *, transpose_rhs=False, out_dtype=None):
+        got = kernel_gmm(x, w, group_sizes, transpose_rhs=transpose_rhs, out_dtype=out_dtype)
+        held("gmm_dgrad" if transpose_rhs else "gmm", got,
+             gmm.plain_gmm(x, w, group_sizes, transpose_rhs=transpose_rhs, out_dtype=out_dtype),
+             gmm.GmmCall(x, w, group_sizes, transpose_rhs, out_dtype))
+        return got
+
+    def held_tgmm_call(x, dy, group_sizes, E, out_dtype=torch.float32):
+        got = kernel_tgmm(x, dy, group_sizes, E, out_dtype)
+        held("tgmm", got, gmm.plain_tgmm(x, dy, group_sizes, E, out_dtype),
+             gmm.TgmmCall(x, dy.contiguous(), group_sizes, E, out_dtype))
+        return got
+
+    gmm.gmm, gmm.tgmm = held_gmm_call, held_tgmm_call
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        gmm.gmm, gmm.tgmm = kernel_gmm, kernel_tgmm
+    L = cfg.num_layers
+    want = {("gmm", "f16"): 3 * L, ("gmm_dgrad", "f16"): 3 * L, ("tgmm", "f16"): 3 * L}
+    ok = [r for r in records if r["dtype"] == str(torch.float16) and r["rel_l2"] <= FP16_GMM_REL_L2
+          and r["planted_rel_l2"] > FP16_GMM_REL_L2]
+    emit({"phase": "moe_fp16_grads", "model": "configs/7B_MoE4_sft.py (MegaBlock-D)", "dtype": str(cfg.dtype),
+          "layers": L, "hidden": cfg.hidden_size, "experts": cfg.num_experts, "tokens": TRAIN_S,
+          "loss_scale": scale, "grads_finite": finite, "bound": FP16_GMM_REL_L2,
+          "launches_by_case": {"/".join(map(str, k)): v for k, v in by_case.items()}, "calls": records})
+    if by_case != want or not finite:
+        raise AssertionError(f"fp16 MoE launches {by_case} (want {want}), finite grads {finite}")
+    if len(records) != 9 * L or len(ok) != len(records):
+        raise AssertionError(f"fp16 MoE: {len(ok)} of {len(records)} gmm calls held (want {9 * L}): {records}")
+    del model, params, leaves, batch
+    return {"by_case": by_case}
+
+
+SLICE11_PHASES = ("kernel_coverage", "demo_entry", "fp16_training", "moe_fp16_grads")
+KERNEL_REPLACES = {
+    "fwd": "internevo_tpu/ops/pallas/splash_attention.py:558 (_fwd_kernel_bsd), :457 (_fwd_kernel)",
+    "bwd_dkdv": "internevo_tpu/ops/pallas/splash_attention.py:984 (_bwd_kernel_bsd), :787 (_bwd_kernel)",
+    "bwd_dq": "internevo_tpu/ops/pallas/splash_attention.py:984 (_bwd_kernel_bsd), :787 (_bwd_kernel)",
+    "gmm": "internevo_tpu/ops/pallas/gmm.py:122 (_gmm_kernel)",
+    "gmm_dgrad": "internevo_tpu/ops/pallas/gmm.py:122 (_gmm_kernel, transpose_rhs)",
+    "tgmm": "internevo_tpu/ops/pallas/gmm.py:151 (_tgmm_kernel)"}
+
+
+def coverage_entries(slice11: dict) -> list:
+    """The kernels-line entries of this slice's new instantiations: every
+    (kernel, dtype, head dim) of kernel_coverage but bf16 at 128 (the
+    training and scoring kernels' own entries), and gmm, gmm dgrad and tgmm
+    in fp16; their launches are the main paths' of demo_entry,
+    fp16_training and moe_fp16_grads (0, and ``main_path`` false, for an
+    instantiation that only kernel_coverage runs), their numbers
+    kernel_coverage's."""
+    paths = {name: slice11[name]["by_case"] for name in ("demo_entry", "fp16_training", "moe_fp16_grads")}
+    entries = []
+    for (kname, dt, D), r in slice11["kernel_coverage"].items():
+        if (dt, D) == ("bf16", 128):
+            continue
+        key = (kname, dt) if D is None else (kname, dt, D)
+        launches = {f"launches_{p}": counts[key] for p, counts in paths.items() if counts.get(key)}
+        dtype = {v: k for k, v in splash.DTYPES.items()}[dt]
+        source = gmm.SOURCE if D is None else splash._sources(dtype)[kname != "fwd"]
+        name = f"{kname}_{dt}" if D is None else f"splash_attention_{kname}_{dt}_d{D}"
+        entries.append({"name": name, "route": "cuda", "source": f"internevo_tpu_torch/csrc/{source}",
+                        "replaces": KERNEL_REPLACES[kname], "launches": sum(launches.values()), **launches,
+                        "main_path": bool(launches),
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **({"library_flex_ms": r["library_flex_ms"]} if "library_flex_ms" in r else {})})
+    return entries
+
+
+def run_slice11_phases(dev, only=SLICE11_PHASES) -> dict:
+    out = {}
+    for name, phase in (("kernel_coverage", phase_kernel_coverage), ("demo_entry", phase_demo_entry),
+                        ("fp16_training", phase_fp16_training), ("moe_fp16_grads", phase_moe_fp16_grads)):
+        if name in only:
+            out[name] = phase(dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 GSHARD_PHASES = ("gshard_scoring", "gshard_grads", "entry_training", "checkpoint_resume")
 
 
@@ -2149,14 +2764,17 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = None
     if argv:
-        if len(argv) != 2 or argv[0] != "--only" or not set(argv[1].split(",")) <= set(GSHARD_PHASES):
-            raise SystemExit(f"usage: chip_smoke.py [--only {','.join(GSHARD_PHASES)}]")
+        if len(argv) != 2 or argv[0] != "--only" or not set(argv[1].split(",")) <= {*GSHARD_PHASES,
+                                                                                     *SLICE11_PHASES}:
+            raise SystemExit(f"usage: chip_smoke.py [--only {','.join(GSHARD_PHASES + SLICE11_PHASES)}]")
         only = tuple(argv[1].split(","))
     phase_device()
     dev = torch.device("cuda")
     phase_build(dev)
     if only is not None:
-        run_gshard_phases(dev, only)
+        if set(only) & set(GSHARD_PHASES):
+            run_gshard_phases(dev, only)
+        run_slice11_phases(dev, only)
         emit({"only": list(only), "ok": True})
         return 0
     kernel = phase_kernel(dev)
@@ -2209,6 +2827,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     gshard_run = run_gshard_phases(dev)
     entry, resumed = gshard_run["entry_training"], gshard_run["checkpoint_resume"]
+    slice11 = run_slice11_phases(dev)
+    demo, fp16 = slice11["demo_entry"], slice11["fp16_training"]
 
     gmm_source = f"internevo_tpu_torch/csrc/{gmm.SOURCE}"
     bwd_source = f"internevo_tpu_torch/csrc/{splash.BWD_SOURCE}"
@@ -2239,7 +2859,8 @@ def main(argv=None) -> int:
         {"name": "fused_adamw", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/fused_adamw.py",
          "replaces": "internevo_tpu/ops/pallas/fused_adamw.py:37 (_kernel)", "launches": trained["adamw"],
          "launches_internlm2_training": internlm2["adamw"], "launches_entry_training": entry["adamw"],
-         "launches_checkpoint_resume": resumed["adamw"], **adamw},
+         "launches_checkpoint_resume": resumed["adamw"], "launches_demo_entry": demo["adamw"],
+         "launches_fp16_training": fp16["adamw"], **adamw},
         {"name": "dropout", "route": "triton", "source": "internevo_tpu_torch/ops/cuda/dropout.py",
          "replaces": "internevo_tpu/models/base.py:412 (dropout: jax.random.bernoulli, no TPU kernel)",
          "launches": internlm2["dropout"], **dropout_kernel},
@@ -2252,6 +2873,7 @@ def main(argv=None) -> int:
         {"name": "tgmm", "route": "cuda", "source": gmm_source,
          "replaces": "internevo_tpu/ops/pallas/gmm.py:151 (_tgmm_kernel)", "launches": moe_trained["tgmm"],
          **gmm_kernels["tgmm"]},
+        *coverage_entries(slice11),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -102,6 +102,18 @@ class CheckpointLoadMask:
 # ------------------------------------------------------------------- trees
 
 
+def staged_on_host(leaves) -> bool:
+    """Whether a tree of these leaves is snapshotted into pinned staging
+    buffers: CUDA state is; CPU state is cloned."""
+    return bool(leaves) and leaves[0].device.type == "cuda"
+
+
+def pinned_like(tree):
+    """A tree of pinned host tensors of ``tree``'s layout: the staging
+    buffers ``snapshot_to_host`` copies CUDA leaves into."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True), tree)
+
+
 def snapshot_to_host(tree, staged=None):
     """A host copy of every leaf, complete when this returns.  CPU leaves are
     cloned.  CUDA leaves are copied into ``staged`` (a tree of pinned host
@@ -110,10 +122,10 @@ def snapshot_to_host(tree, staged=None):
     bus's rate where a fresh pageable copy faults in every page first.
     Returns the host tree (``staged`` itself for CUDA leaves)."""
     leaves = tree_leaves(tree)
-    if not leaves or leaves[0].device.type != "cuda":
+    if not staged_on_host(leaves):
         return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
     if staged is None or [(t.shape, t.dtype) for t in tree_leaves(staged)] != [(t.shape, t.dtype) for t in leaves]:
-        staged = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True), tree)
+        staged = pinned_like(tree)
     for dst, src in zip(tree_leaves(staged), leaves):
         dst.copy_(src.detach(), non_blocking=True)
     torch.cuda.current_stream(leaves[0].device).synchronize()
@@ -260,7 +272,8 @@ class CheckpointManager:
         self._file_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._pending: Optional[tuple] = None
         # pinned host trees the snapshots of CUDA state are copied into, kept
-        # from one save to the next (a save starts after the last one landed)
+        # from one save to the next (a save starts after the last one landed);
+        # allocated before the loop by ``allocate_staging``
         self._staged: dict = {}
         self.save_records: list[dict] = []  # one a save: path, step, seconds, bytes
         self.load_record: Optional[dict] = None
@@ -321,6 +334,23 @@ class CheckpointManager:
                 f.write(str(step))
         record["stamp_s"] = time.perf_counter() - t0
 
+    def _trees(self) -> dict:
+        """The trees a save writes, by their file in the checkpoint folder."""
+        return {os.path.join(MODEL_FOLDER, PARAMS_FILE): self.engine.params,
+                **{os.path.join(OPT_FOLDER, f"{key}.pt"): value for key, value in self.engine.opt_state.items()}}
+
+    def allocate_staging(self) -> float:
+        """Allocates the pinned host buffers of every CUDA tree a save
+        snapshots, so that no save pays for them inside the loop.  Nothing
+        happens when saving is off or the state lies on the CPU.  Returns the
+        seconds it took."""
+        t0 = time.perf_counter()
+        if self.enable_save_ckpt:
+            for rel, tree in self._trees().items():
+                if staged_on_host(tree_leaves(tree)) and rel not in self._staged:
+                    self._staged[rel] = pinned_like(tree)
+        return time.perf_counter() - t0
+
     def save_checkpoint(self, path: str, train_state=None, block: bool = True):
         t0 = time.perf_counter()
         backend, rest = StorageManager._parse(path)
@@ -331,9 +361,7 @@ class CheckpointManager:
             shutil.rmtree(local)
         os.makedirs(local, exist_ok=True)
         train_state = train_state or self.train_state
-        trees = {os.path.join(MODEL_FOLDER, PARAMS_FILE): self.engine.params,
-                 **{os.path.join(OPT_FOLDER, f"{key}.pt"): value for key, value in self.engine.opt_state.items()}}
-        for rel, tree in trees.items():
+        for rel, tree in self._trees().items():
             self._staged[rel] = snapshot_to_host(tree, self._staged.get(rel))
         files = list(self._staged.items())
         snapshot_s = time.perf_counter() - t0

@@ -7,7 +7,11 @@
 //
 //   gmm:   out[i, :] = x[i, :] @ w[g(i)]       w[g] (K, F), row-major
 //          out[i, :] = x[i, :] @ w[g(i)]^T     transpose_rhs: w[g] (F, K)
-//   tgmm:  dw[e] = sum_{i in e} x[i]^T dy[i]   (E, K, F), bf16 or fp32
+//   tgmm:  dw[e] = sum_{i in e} x[i]^T dy[i]   (E, K, F), T or fp32
+//
+// The operands are of one 16-bit type T, bf16 or f16 (the TPU kernel takes
+// x's dtype), and every output is T or fp32: each kind is instantiated for
+// both types and both outputs.
 //
 // g(i) is the group whose rows [start, end) hold row i.  The ends come in as
 // the cumulative sum of group_sizes (int32, on the device); rows past the last
@@ -23,7 +27,7 @@
 // starts TMA loads (128-byte swizzle) of 64-deep contraction slices into a
 // ring of 4 stages (48 KB each) with a full and an empty mbarrier a stage.
 // Warpgroups 1 and 2 are consumers: each owns 64 of the item's 128 output
-// rows and runs wgmma m64n256k16 (bf16 in, fp32 accumulate, 128 registers a
+// rows and runs wgmma m64n256k16 (T in, fp32 accumulate, 128 registers a
 // thread) on both operands in shared memory.  One wgmma group stays in flight
 // while the previous stage is released.  setmaxnreg gives the consumers 232
 // registers and the producer 40.  While the consumers store one item, the
@@ -55,11 +59,11 @@
 //
 // A consumer whose 64 rows all belong to the item's output (its group's rows
 // in gmm; any rows inside K in tgmm, where a tile lies wholly in one expert)
-// writes them as bf16 with stmatrix into a swizzled staging buffer and one
+// writes them as T with stmatrix into a swizzled staging buffer and one
 // thread stores it by TMA, asynchronously, so the stores overlap the next
 // item's mainloop.  Other rows (a gmm tile straddling a group boundary) and
 // fp32 outputs are stored directly.  Each output element is an fp32 sum over
-// its own group's rows only, rounded once at the store, so tgmm's bf16 dw is
+// its own group's rows only, rounded once at the store, so tgmm's T dw is
 // bit for bit the rounding of its fp32 dw.  Every output element is written
 // once, by one item: no atomics, and the result is deterministic.
 
@@ -67,18 +71,16 @@
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 enum Kind { GMM = 0, GMM_DGRAD = 1, TGMM = 2 };
 
 constexpr int BAND = 8;                             // row tiles per band of the item order
 constexpr int GMM_BM = 128;                         // output rows an item (two consumer warpgroups of 64)
 constexpr int GMM_BN = 256;                         // output columns an item (one wgmma n256)
-constexpr int GMM_BK = 64;                          // contraction slice: 128 bytes of bf16, one swizzle row
+constexpr int GMM_BK = 64;                          // contraction slice: 128 bytes of T, one swizzle row
 constexpr int GMM_STAGES = 4;
 constexpr int GMM_A_BYTES = GMM_BM * GMM_BK * 2;    // 16 KB
 constexpr int GMM_B_BYTES = GMM_BK * GMM_BN * 2;    // 32 KB
-constexpr int GMM_BOX = BOX;                        // 8 KB: a 64 x 64 bf16 box, one 128-byte line a row
+constexpr int GMM_BOX = BOX;                        // 8 KB: a 64 x 64 box of T, one 128-byte line a row
 constexpr int GMM_THREADS = 384;                    // producer warpgroup + 2 consumer warpgroups
 constexpr int GMM_CONSUMER_WARPS = 8;
 constexpr int GMM_OUT_BYTES = 2 * GMM_BOX;          // a consumer's staging: half its 64 x 256 rows at a time
@@ -90,7 +92,7 @@ static_assert(GMM_SMEM <= 232448, "the ring and the staging fit a block's shared
 // dy (n, F).
 struct GmmParams {
   const int* cum;     // (E,) cumulative group sizes
-  void* out;          // bf16 or fp32
+  void* out;          // T or fp32
   int n, K, F, E;
 };
 
@@ -119,35 +121,40 @@ __device__ __forceinline__ void zero_rows(uint32_t box, int valid, int cw) {
   consumer_sync(cw);
 }
 
-// d (64 x 256, fp32) += A (64 x 16) @ B (16 x 256); each operand K-major (0)
-// or MN-major (1).  scale_d 0 overwrites d.
-template <int TRANS_A, int TRANS_B>
+// d (64 x 256, fp32) += A (64 x 16) @ B (16 x 256), both of T; each operand
+// K-major (0) or MN-major (1).  scale_d 0 overwrites d.
+#define GMM_M64N256K16(TY)                                                          \
+  asm volatile(                                                                     \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" HOPPER_WGMMA(256, TY) "{"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, " \
+      "%72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, " \
+      "%88, %89, %90, %91, %92, %93, %94, %95, " \
+      "%96, %97, %98, %99, %100, %101, %102, %103, " \
+      "%104, %105, %106, %107, %108, %109, %110, %111, " \
+      "%112, %113, %114, %115, %116, %117, %118, %119, " \
+      "%120, %121, %122, %123, %124, %125, %126, %127}, " \
+      "%128, %129, p, 1, 1, %131, %132;\n}\n" \
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32), \
+        HOPPER_ACC8(d, 40), HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56), HOPPER_ACC8(d, 64), HOPPER_ACC8(d, 72), \
+        HOPPER_ACC8(d, 80), HOPPER_ACC8(d, 88), HOPPER_ACC8(d, 96), HOPPER_ACC8(d, 104), HOPPER_ACC8(d, 112), \
+        HOPPER_ACC8(d, 120) \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B))
+template <int TRANS_A, int TRANS_B, typename T>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, %131, %132;\n}\n"
-      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32),
-        HOPPER_ACC8(d, 40), HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56), HOPPER_ACC8(d, 64), HOPPER_ACC8(d, 72),
-        HOPPER_ACC8(d, 80), HOPPER_ACC8(d, 88), HOPPER_ACC8(d, 96), HOPPER_ACC8(d, 104), HOPPER_ACC8(d, 112),
-        HOPPER_ACC8(d, 120)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+  if constexpr (is_f16<T>()) {
+    GMM_M64N256K16("f16");
+  } else {
+    GMM_M64N256K16("bf16");
+  }
 }
 
 // Group g's rows [lo, hi): the groups cut [0, n) in order at the device ends
@@ -232,7 +239,11 @@ __device__ __forceinline__ Item work_item(const GmmParams& p, const Walk& w, int
 }
 
 __device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+  *reinterpret_cast<uint32_t*>(dst) = pack2<bf16>(a, b);
+}
+
+__device__ __forceinline__ void store_pair(f16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack2<f16>(a, b);
 }
 
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
@@ -241,9 +252,9 @@ __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
 
 // ta: x (gmm: 64 x 128 boxes of (K, n); tgmm: 64 x 64 boxes of (K, n)).  tb:
 // gmm forward w (F, K, E), 64 x 64 boxes; transpose_rhs w (K, F, E), a 64 x
-// 256 box; tgmm dy (F, n, 1), 64 x 64 boxes.  tout: the bf16 output, 64 x 64
-// boxes of (F, n, 1) (gmm) or (F, K, E) (tgmm).
-template <int KIND, typename OutT>
+// 256 box; tgmm dy (F, n, 1), 64 x 64 boxes.  tout: the output of T, 64 x
+// 64 boxes of (F, n, 1) (gmm) or (F, K, E) (tgmm).
+template <int KIND, typename T, typename OutT>
 __device__ __forceinline__ void gmm_body(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tout,
                                          const GmmParams& p) {
   constexpr bool A_MN = KIND == TGMM;       // A = x^T: its rows are the contraction
@@ -329,7 +340,7 @@ __device__ __forceinline__ void gmm_body(const CUtensorMap& ta, const CUtensorMa
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < GMM_BK / 16; ++k)
-          wgmma_m64n256k16<A_MN, B_MN>(acc, box_desc<A_MN>(a, k), box_desc<B_MN>(b, k), (s | k) != 0);
+          wgmma_m64n256k16<A_MN, B_MN, T>(acc, box_desc<A_MN>(a, k), box_desc<B_MN>(b, k), (s | k) != 0);
         wgmma_commit();
         fence_regs(acc);
         if (s > 0) {  // the previous stage's wgmma group is done: release it
@@ -359,7 +370,7 @@ __device__ __forceinline__ void gmm_body(const CUtensorMap& ta, const CUtensorMa
       const int rows = KIND == TGMM ? p.K : p.n;
       const int row_lo = KIND == TGMM ? 0 : it.lo, row_hi = KIND == TGMM ? p.K : it.hi;
       if (sizeof(OutT) == 2 && row_lo <= r_first && r_first < row_hi && min(r_first + 64, rows) <= row_hi) {
-        // rows wholly in the output: bf16 through shared memory, in two halves
+        // rows wholly in the output: T through shared memory, in two halves
         // of 128 columns, each two 64 x 64 boxes in the 128-byte swizzle that
         // a TMA store reads; rows and columns past the output's edge are
         // clipped by the tensor map.  Overlaps the next item's mainloop.
@@ -375,8 +386,8 @@ __device__ __forceinline__ void gmm_body(const CUtensorMap& ta, const CUtensorMa
             const int i = 16 * half + 2 * j;
             const int block = 2 * j + (m >> 1);  // 0..15 in the half
             const uint32_t addr = buf + (block / 8) * GMM_BOX + row * 128 + (((block % 8) ^ rr) << 4);
-            stmatrix_x4(addr, pack_bf16(v(4 * i), v(4 * i + 1)), pack_bf16(v(4 * i + 2), v(4 * i + 3)),
-                        pack_bf16(v(4 * i + 4), v(4 * i + 5)), pack_bf16(v(4 * i + 6), v(4 * i + 7)));
+            stmatrix_x4(addr, pack2<T>(v(4 * i), v(4 * i + 1)), pack2<T>(v(4 * i + 2), v(4 * i + 3)),
+                        pack2<T>(v(4 * i + 4), v(4 * i + 5)), pack2<T>(v(4 * i + 6), v(4 * i + 7)));
           }
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA store
           consumer_sync(cw);
@@ -406,36 +417,38 @@ __device__ __forceinline__ void gmm_body(const CUtensorMap& ta, const CUtensorMa
   }
 }
 
-template <typename OutT>
+template <typename T, typename OutT>
 __global__ void __launch_bounds__(GMM_THREADS, 1)
     gmm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                const __grid_constant__ CUtensorMap tout, GmmParams p) {
-  gmm_body<GMM, OutT>(ta, tb, tout, p);
+  gmm_body<GMM, T, OutT>(ta, tb, tout, p);
 }
 
-template <typename OutT>
+template <typename T, typename OutT>
 __global__ void __launch_bounds__(GMM_THREADS, 1)
     gmm_dgrad_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                      const __grid_constant__ CUtensorMap tout, GmmParams p) {
-  gmm_body<GMM_DGRAD, OutT>(ta, tb, tout, p);
+  gmm_body<GMM_DGRAD, T, OutT>(ta, tb, tout, p);
 }
 
-template <typename OutT>
+template <typename T, typename OutT>
 __global__ void __launch_bounds__(GMM_THREADS, 1)
     tgmm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                 const __grid_constant__ CUtensorMap tout, GmmParams p) {
-  gmm_body<TGMM, OutT>(ta, tb, tout, p);
+  gmm_body<TGMM, T, OutT>(ta, tb, tout, p);
 }
 
 // ---------------------------------------------------------------- host side
 
-// The six instantiations, 2 * kind + (fp32 out); each gets its dynamic shared
-// memory limit raised once a device, before its first launch there.
+// The twelve instantiations, 6 * (f16) + 2 * kind + (fp32 out); each gets
+// its dynamic shared memory limit raised once a device, before its first
+// launch there.
 constexpr int MAX_DEVICES = 64;
-const void* gmm_kernels[6] = {(const void*)gmm_kernel<bf16>,       (const void*)gmm_kernel<float>,
-                              (const void*)gmm_dgrad_kernel<bf16>, (const void*)gmm_dgrad_kernel<float>,
-                              (const void*)tgmm_kernel<bf16>,      (const void*)tgmm_kernel<float>};
-bool gmm_smem_set[6][MAX_DEVICES];
+#define GMM_KERNELS(T)                                                                                       \
+  (const void*)gmm_kernel<T, T>, (const void*)gmm_kernel<T, float>, (const void*)gmm_dgrad_kernel<T, T>,     \
+      (const void*)gmm_dgrad_kernel<T, float>, (const void*)tgmm_kernel<T, T>, (const void*)tgmm_kernel<T, float>
+const void* gmm_kernels[12] = {GMM_KERNELS(bf16), GMM_KERNELS(f16)};
+bool gmm_smem_set[12][MAX_DEVICES];
 
 // One persistent block a SM, at most one an item.
 int launch(int which, CUtensorMap ta, CUtensorMap tb, CUtensorMap tout, GmmParams p, long long items,
@@ -457,14 +470,10 @@ int launch(int which, CUtensorMap ta, CUtensorMap tb, CUtensorMap tout, GmmParam
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-}  // namespace
-
-// Plain C entry points (loaded with ctypes).  Each returns a cudaError_t; 0 is
-// success.  Shapes are checked by the Python wrapper (ops/cuda/gmm.py): n > 0,
-// K and F multiples of 8, contiguous 16-byte aligned operands (what TMA's
-// strides and base addresses need).
-extern "C" int gmm_bf16(const void* x, const void* w, const int* cum, void* out, int n, int K, int F, int E,
-                        int transpose_rhs, int out_f32, void* stream) {
+// out (n, F) from x (n, K) and w; see the entry points.
+template <typename T>
+int run_gmm(const void* x, const void* w, const int* cum, void* out, int n, int K, int F, int E, int transpose_rhs,
+            int out_f32, void* stream) {
   if (n <= 0 || K <= 0 || F <= 0 || E <= 0 || K % 8 || F % 8) return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb, tout;
   const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)n};
@@ -475,13 +484,13 @@ extern "C" int gmm_bf16(const void* x, const void* w, const int* cum, void* out,
   const cuuint32_t wt_box[3] = {GMM_BK, GMM_BN, 1};
   const cuuint64_t w_dims[3] = {(cuuint64_t)F, (cuuint64_t)K, (cuuint64_t)E};
   const cuuint32_t w_box[3] = {64, GMM_BK, 1};
-  // out (bf16): 64 x 64 boxes for the TMA store of tiles wholly in one group;
+  // out (T): 64 x 64 boxes for the TMA store of tiles wholly in one group;
   // an fp32 out is stored directly and passes x's map in its place
   const cuuint64_t out_dims[3] = {(cuuint64_t)F, (cuuint64_t)n, 1};
   const cuuint32_t out_box[3] = {64, 64, 1};
-  if (!encode(&ta, x, 2, x_dims, x_box) ||
-      !encode(&tb, w, 3, transpose_rhs ? wt_dims : w_dims, transpose_rhs ? wt_box : w_box) ||
-      !(out_f32 || encode(&tout, out, 3, out_dims, out_box)))
+  if (!encode<T>(&ta, x, 2, x_dims, x_box) ||
+      !encode<T>(&tb, w, 3, transpose_rhs ? wt_dims : w_dims, transpose_rhs ? wt_box : w_box) ||
+      !(out_f32 || encode<T>(&tout, out, 3, out_dims, out_box)))
     return (int)cudaErrorInvalidValue;
   if (out_f32) tout = ta;
 
@@ -489,25 +498,45 @@ extern "C" int gmm_bf16(const void* x, const void* w, const int* cum, void* out,
   // at most (m-tiles + E - 1) x n-tiles items: a group boundary inside an
   // m-tile adds one
   const long long items = ((n + GMM_BM - 1) / GMM_BM + E - 1) * (long long)((F + GMM_BN - 1) / GMM_BN);
-  return launch(2 * (transpose_rhs != 0) + (out_f32 != 0), ta, tb, tout, p, items, stream);
+  return launch(6 * is_f16<T>() + 2 * (transpose_rhs != 0) + (out_f32 != 0), ta, tb, tout, p, items, stream);
 }
 
-// dw (E, K, N) from x (n, K) and dy (n, N); n > 0 (the wrapper gives n = 0
-// its zeros without a launch: a tensor map cannot span 0 rows).
-extern "C" int tgmm_bf16(const void* x, const void* dy, const int* cum, void* out, int n, int K, int N, int E,
-                         int out_f32, void* stream) {
+// dw (E, K, N) from x (n, K) and dy (n, N); see the entry points.
+template <typename T>
+int run_tgmm(const void* x, const void* dy, const int* cum, void* out, int n, int K, int N, int E, int out_f32,
+             void* stream) {
   if (n <= 0 || K <= 0 || N <= 0 || E <= 0 || K % 8 || N % 8) return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb, tout;
   const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)n};
   const cuuint64_t dy_dims[3] = {(cuuint64_t)N, (cuuint64_t)n, 1};
   const cuuint64_t out_dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
   const cuuint32_t box[3] = {64, 64, 1};
-  if (!encode(&ta, x, 2, x_dims, box) || !encode(&tb, dy, 3, dy_dims, box) ||
-      !(out_f32 || encode(&tout, out, 3, out_dims, box)))
+  if (!encode<T>(&ta, x, 2, x_dims, box) || !encode<T>(&tb, dy, 3, dy_dims, box) ||
+      !(out_f32 || encode<T>(&tout, out, 3, out_dims, box)))
     return (int)cudaErrorInvalidValue;
   if (out_f32) tout = ta;
 
   const GmmParams p = {cum, out, n, K, N, E};
   const long long items = (long long)E * ((K + GMM_BM - 1) / GMM_BM) * ((N + GMM_BN - 1) / GMM_BN);
-  return launch(4 + (out_f32 != 0), ta, tb, tout, p, items, stream);
+  return launch(6 * is_f16<T>() + 4 + (out_f32 != 0), ta, tb, tout, p, items, stream);
 }
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes), one per operand type, bf16 or
+// f16.  Each returns a cudaError_t; 0 is success.  Shapes are checked by the
+// Python wrapper (ops/cuda/gmm.py): n > 0, K and F multiples of 8,
+// contiguous 16-byte aligned operands (what TMA's strides and base addresses
+// need).  out_f32 picks an fp32 output over one of the operands' type.
+#define GMM_ARGS                                                                                            \
+  const void *x, const void *w, const int *cum, void *out, int n, int K, int F, int E, int transpose_rhs, \
+      int out_f32, void *stream
+extern "C" int gmm_bf16(GMM_ARGS) { return run_gmm<bf16>(x, w, cum, out, n, K, F, E, transpose_rhs, out_f32, stream); }
+extern "C" int gmm_f16(GMM_ARGS) { return run_gmm<f16>(x, w, cum, out, n, K, F, E, transpose_rhs, out_f32, stream); }
+
+// dw (E, K, N) from x (n, K) and dy (n, N); n > 0 (the wrapper gives n = 0
+// its zeros without a launch: a tensor map cannot span 0 rows).
+#define TGMM_ARGS \
+  const void *x, const void *dy, const int *cum, void *out, int n, int K, int N, int E, int out_f32, void *stream
+extern "C" int tgmm_bf16(TGMM_ARGS) { return run_tgmm<bf16>(x, dy, cum, out, n, K, N, E, out_f32, stream); }
+extern "C" int tgmm_f16(TGMM_ARGS) { return run_tgmm<f16>(x, dy, cum, out, n, K, N, E, out_f32, stream); }

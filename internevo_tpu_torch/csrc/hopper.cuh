@@ -2,16 +2,30 @@
 // TMA loads and stores, wgmma shared-memory descriptors and the wgmma shapes
 // the kernels use, and the host-side tensor-map encoder.  Included by
 // gmm.cu and the two splash-attention sources; each builds into its own
-// library.
+// library.  The 16-bit element type T (bf16 or f16) is a template parameter
+// of every wrapper that names it: the wgmma kind, the register packs and
+// the tensor map's data type.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+typedef __nv_bfloat16 bf16;
+typedef __half f16;
+
+template <typename T>
+__host__ __device__ constexpr bool is_f16() {
+  static_assert(std::is_same<T, bf16>::value || std::is_same<T, f16>::value, "bf16 or f16 operands");
+  return std::is_same<T, f16>::value;
+}
 
 // ------------------------------------------------------------- device side
 
@@ -95,7 +109,7 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 }
 
 // The descriptor of the 16-deep step k of an operand tile made of 64 x 64
-// bf16 boxes (one 128-byte swizzled line a row, BOX bytes a box).  K-major
+// 16-bit boxes (one 128-byte swizzled line a row, BOX bytes a box).  K-major
 // (rows along the contraction, one box a 64-wide slice of it): the slice k /
 // 4 is box k / 4, k advances 32 bytes in the swizzled row, 8-row groups 1024
 // bytes apart.  MN-major (one row a contraction index, one box a 64-wide
@@ -132,74 +146,93 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
   "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), \
       "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 
+// The wgmma instruction of an (M, N, K) = (64, N, 16) product with fp32
+// accumulators, its kind .f32.TY.TY for TY "bf16" or "f16".
+#define HOPPER_WGMMA(N, TY) "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " "
+
 // d (64 x 64, fp32) += A (64 x 16) @ B (16 x 64), both from shared memory;
 // each operand K-major (0) or MN-major (1).  scale_d 0 overwrites d.
-template <int TRANS_A, int TRANS_B>
+#define HOPPER_M64N64K16_SS(TY)                                                  \
+  asm volatile(                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" HOPPER_WGMMA(64, TY) "{"      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                 \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                                 \
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"                                        \
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24) \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B))
+template <int TRANS_A, int TRANS_B, typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+  if constexpr (is_f16<T>()) {
+    HOPPER_M64N64K16_SS("f16");
+  } else {
+    HOPPER_M64N64K16_SS("bf16");
+  }
 }
 
-// d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) @ B (16 x 64,
-// shared memory, K-major (0) or MN-major (1)).
-template <int TRANS_B>
+// d (64 x 64, fp32) += A (64 x 16, 16-bit fragments in registers) @ B (16 x
+// 64, shared memory, K-major (0) or MN-major (1)).
+#define HOPPER_M64N64K16_RS(TY)                                                  \
+  asm volatile(                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" HOPPER_WGMMA(64, TY) "{"      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                 \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                                 \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                            \
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B))
+template <int TRANS_B, typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                                                    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  if constexpr (is_f16<T>()) {
+    HOPPER_M64N64K16_RS("f16");
+  } else {
+    HOPPER_M64N64K16_RS("bf16");
+  }
 }
 
-// d (64 x 128, fp32) += A (64 x 16, bf16 fragments in registers) @ B (16 x
+// d (64 x 128, fp32) += A (64 x 16, 16-bit fragments in registers) @ B (16 x
 // 128, shared memory, K-major (0) or MN-major (1)).
-template <int TRANS_B>
+#define HOPPER_M64N128K16_RS(TY)                                                 \
+  asm volatile(                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" HOPPER_WGMMA(128, TY) "{"     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                 \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                                 \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                                 \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                                 \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                                 \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                                 \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                            \
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32), \
+        HOPPER_ACC8(d, 40), HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56)               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B))
+template <int TRANS_B, typename T>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
                                                     int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32),
-        HOPPER_ACC8(d, 40), HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  if constexpr (is_f16<T>()) {
+    HOPPER_M64N128K16_RS("f16");
+  } else {
+    HOPPER_M64N128K16_RS("bf16");
+  }
 }
 
 // d (64 x D) += A (64 x 16, registers) @ B (16 x D, shared memory, MN-major),
 // D 64 or 128: the attention kernels' products over a 64-row tile, such as
 // O += P V, with P packed from an m64n64 accumulator.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db, int scale_d) {
   if constexpr (D == 128) {
-    wgmma_m64n128k16_rs<1>(d, a, db, scale_d);
+    wgmma_m64n128k16_rs<1, T>(d, a, db, scale_d);
   } else {
-    wgmma_m64n64k16_rs<1>(d, a, db, scale_d);
+    wgmma_m64n64k16_rs<1, T>(d, a, db, scale_d);
   }
 }
 
-// Four 8 x 8 bf16 matrices to shared memory: this thread holds (row lane / 4,
+// Four 8 x 8 16-bit matrices to shared memory: this thread holds (row lane / 4,
 // columns 2 (lane % 4) + {0, 1}) of each and gives the address of row lane % 8
 // of matrix lane / 8.
 __device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
@@ -208,7 +241,7 @@ __device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t
                : "memory");
 }
 
-// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// Four 8 x 8 16-bit matrices from shared memory: lane l gives the address of
 // row l % 8 of matrix l / 8 and gets (row l / 4, columns 2 (l % 4) + {0, 1})
 // of each, as mma and wgmma A fragments take them.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
@@ -218,11 +251,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
                : "memory");
 }
 
-// Two floats as a bf16 pair, a in the low half: the lower column of an
-// accumulator pair, as wgmma's A fragments and stmatrix take it.
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
+// Two floats as a T pair (round to nearest even; f16: cvt.rn.f16x2.f32), a
+// in the low half: the lower column of an accumulator pair, as wgmma's A
+// fragments and stmatrix take it.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  if constexpr (is_f16<T>()) {
+    __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
 }
 
 // ---------------------------------------------------------------- host side
@@ -249,16 +289,19 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map with 128-byte swizzle over a contiguous row-major tensor
-// of rank 2 to 4, dims and box given innermost first.  Elements out of
-// bounds read as zero and are not written.
+// A tensor map of T (bf16 or f16) with 128-byte swizzle over a contiguous
+// row-major tensor of rank 2 to 4, dims and box given innermost first.
+// Elements out of bounds (a box may be wider than the tensor) read as zero
+// and are not written.
+template <typename T>
 bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims, const cuuint32_t* box) {
+  const CUtensorMapDataType type = is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const EncodeTiled fn = encode_tiled();
   cuuint64_t strides[3];
   cuuint64_t stride = 2;
   for (int d = 0; d + 1 < rank; ++d) strides[d] = stride *= dims[d];
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn != nullptr && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+  return fn != nullptr && fn(map, type, rank, const_cast<void*>(base), dims, strides,
                              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

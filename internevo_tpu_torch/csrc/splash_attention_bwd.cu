@@ -52,12 +52,12 @@
 //                               dPᵀ = V dOᵀ) or, for dQ, Q and dO as register
 //                               fragments loaded once an item (ldmatrix)
 //   P, dS in registers          mask, exp2, dropout, dS = P∘(dP∘drop − delta)
-//   dV += (P∘drop)ᵀ dO          wgmma m64n(D)k16 with A = the bf16 P∘drop /
+//   dV += (P∘drop)ᵀ dO          wgmma m64n(D)k16 with A = the T P∘drop /
 //   dK += dSᵀ Q, dQ += dS K     dS packed from the accumulator (whose layout
 //                               is the A-fragment layout), B = the streamed
 //                               tile read MN-major
 //
-// and stores its rows of dK and dV (or dQ) as bf16 at the end.  setmaxnreg
+// and stores its rows of dK and dV (or dQ) as T at the end.  setmaxnreg
 // gives the consumers 240 registers and the producer 24.  A tile pair wholly
 // below the diagonal, in range and inside one segment (the producer's and the
 // consumer's flags) skips the per-element causal and segment tests: the
@@ -75,8 +75,15 @@
 //        by select, never as exp(+inf)·0);
 //   dV = Σ (P∘drop)ᵀ dO;  dP = dO Vᵀ;  dS = P∘(dP∘drop − delta);
 //   dQ = scale · dS K;    dK = scale · dSᵀ Q;  dK and dV summed over the
-//   q heads of each kv group.  P∘drop and dS are rounded to bf16 before their
-//   products, as the TPU kernel rounds them.
+//   q heads of each kv group.  P∘drop and dS are rounded to T before their
+//   products, as the TPU kernel rounds them to q's dtype.
+//
+// Types and head dims, as the forward's: T is bf16 or f16 (q, k, v, dO and
+// the grads), the body is instantiated at D = 64 and 128, and a head dim d
+// <= 128 that is a multiple of 8 runs on the next width: the tensor maps
+// carry the true d, TMA fills the columns past it with zeros (which add
+// nothing to S, dP or delta's products), and only the first d columns of
+// each grad are stored.
 //
 // Dropout (rate > 0): the forward's keep test, fmix32(row*0x9E3779B1 ^
 // col*0x85EBCA77 ^ head*0xC2B2AE3D ^ base) >= thresh over GLOBAL (row, col,
@@ -87,8 +94,6 @@
 #include "splash.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int TILE = 64;      // rows of a streamed tile and of a consumer's share of an item
 constexpr int ITEM = 128;     // rows of an item: kv rows (dK/dV) or q rows (dQ)
@@ -104,10 +109,11 @@ struct Params {
   const int* kv_seg;   // (B, Sk)
   const int* kv_lo;    // (B, cdiv(S, 128))  first 64-row kv tile each 128-row q item visits
   const int* q_hi;     // (B, cdiv(Sk, 128)) last 64-row q tile each 128-row kv item visits
-  bf16* dq;            // (B, S, Hq, D)
-  bf16* dk;            // (B, Sk, Hkv, D)
-  bf16* dv;            // (B, Sk, Hkv, D)
+  void* dq;            // (B, S, Hq, d) of T
+  void* dk;            // (B, Sk, Hkv, d)
+  void* dv;            // (B, Sk, Hkv, d)
   int S, Sk, Hq, Hkv;
+  int d;               // the head dim, <= the instantiated D, a multiple of 8
   float scale;         // softmax_scale
   float scale_log2;    // softmax_scale * log2(e)
   int causal, use_seg, dropout;
@@ -176,7 +182,7 @@ __device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
 // f0, f1: the item's fixed operands (dK/dV: K, V; dQ: Q, dO); s0, s1: the
 // streamed ones (dK/dV: Q, dO; dQ: K, V).  Each a 4-D map over (D, H, rows,
 // B) with 64 x 1 x 64 x 1 boxes.
-template <int D, bool DKDV>
+template <int D, bool DKDV, typename T>
 __device__ __forceinline__ void bwd_body(const CUtensorMap& f0, const CUtensorMap& f1, const CUtensorMap& s0,
                                          const CUtensorMap& s1, const Params& p) {
   constexpr int NB = D / 64;                // 64-column boxes a row
@@ -325,7 +331,7 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap& f0, const CUtensorMa
   float acc[DKDV ? 2 : 1][D / 2];  // dK/dV: [0] dV, [1] dK; dQ: [0] dQ
   mbar_wait(fixed_bar, 0);
   const uint32_t a0 = fixed0 + cw * NB * BOX, a1 = fixed1 + cw * NB * BOX;
-  // dQ: this consumer's Q and dO rows as bf16 A fragments, loaded once, so
+  // dQ: this consumer's Q and dO rows as A fragments, loaded once, so
   // that S and dP read only their B operand from shared memory (shared-memory
   // bandwidth bounds these products; dK/dV has no registers to spare for K
   // and V).  Fragment k: rows 16 warp + {0..15}, columns 16 k + {0..15};
@@ -358,11 +364,11 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap& f0, const CUtensorMa
 #pragma unroll
       for (int k = 0; k < D / 16; ++k) {
         if constexpr (DKDV) {
-          wgmma_m64n64k16_ss<0, 0>(s, box_desc<false>(a0, k), box_desc<false>(b0, k), k);
-          wgmma_m64n64k16_ss<0, 0>(dp, box_desc<false>(a1, k), box_desc<false>(b1, k), k);
+          wgmma_m64n64k16_ss<0, 0, T>(s, box_desc<false>(a0, k), box_desc<false>(b0, k), k);
+          wgmma_m64n64k16_ss<0, 0, T>(dp, box_desc<false>(a1, k), box_desc<false>(b1, k), k);
         } else {
-          wgmma_m64n64k16_rs<0>(s, qf[k], box_desc<false>(b0, k), k);
-          wgmma_m64n64k16_rs<0>(dp, of[k], box_desc<false>(b1, k), k);
+          wgmma_m64n64k16_rs<0, T>(s, qf[k], box_desc<false>(b0, k), k);
+          wgmma_m64n64k16_rs<0, T>(dp, of[k], box_desc<false>(b1, k), k);
         }
       }
       wgmma_commit();
@@ -407,7 +413,7 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap& f0, const CUtensorMa
       fence_regs(dp);
 
       // P = exp2(S·scale·log2e − lse·log2e) where kept, dS = P∘(dP∘drop −
-      // delta), each pair packed into the bf16 A fragments of the k step
+      // delta), each pair packed into the T A fragments of the k step
       // that covers its columns; one loop per (masked, dropout) case, so that
       // neither is tested per element where it does not apply
       uint32_t pf[4][4], df[4][4];  // P∘drop (dK/dV only) and dS
@@ -431,8 +437,8 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap& f0, const CUtensorMa
             }
             ds[e] = pv * (dpe - (e ? delta.y : delta.x));
           }
-          df[i / 8][(i % 8) / 2] = pack_bf16(ds[0], ds[1]);
-          if constexpr (DKDV) pf[i / 8][(i % 8) / 2] = pack_bf16(pd[0], pd[1]);
+          df[i / 8][(i % 8) / 2] = pack2<T>(ds[0], ds[1]);
+          if constexpr (DKDV) pf[i / 8][(i % 8) / 2] = pack2<T>(pd[0], pd[1]);
         }
       };
       if (p.dropout) {
@@ -449,10 +455,10 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap& f0, const CUtensorMa
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if constexpr (DKDV) {
-          wgmma_rs<D>(acc[0], pf[k], box_desc<true>(b1, k), first ? k : 1);
-          wgmma_rs<D>(acc[1], df[k], box_desc<true>(b0, k), first ? k : 1);
+          wgmma_rs<D, T>(acc[0], pf[k], box_desc<true>(b1, k), first ? k : 1);
+          wgmma_rs<D, T>(acc[1], df[k], box_desc<true>(b0, k), first ? k : 1);
         } else {
-          wgmma_rs<D>(acc[0], df[k], box_desc<true>(b0, k), first ? k : 1);
+          wgmma_rs<D, T>(acc[0], df[k], box_desc<true>(b0, k), first ? k : 1);
         }
       }
       wgmma_commit();
@@ -468,48 +474,51 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap& f0, const CUtensorMa
       advance(stage, phase);
     }
 
-  // rows rloc and rloc + 8 of this consumer; an item with no steps stores 0
+  // rows rloc and rloc + 8 of this consumer, their first d columns; an item
+  // with no steps stores 0
   const bool live = w.hi >= w.lo;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row_base + rloc + 8 * h;
     if (r >= nrows) continue;
-    const size_t off = DKDV ? (((size_t)b * p.Sk + r) * p.Hkv + head) * D : (((size_t)b * p.S + r) * p.Hq + head) * D;
+    const size_t off =
+        DKDV ? (((size_t)b * p.Sk + r) * p.Hkv + head) * p.d : (((size_t)b * p.S + r) * p.Hq + head) * p.d;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4), i = 4 * j + 2 * h;
+      if (8 * j >= p.d) continue;
       if constexpr (DKDV) {
-        *reinterpret_cast<uint32_t*>(p.dk + off + col) =
-            pack_bf16(live ? acc[1][i] * p.scale : 0.f, live ? acc[1][i + 1] * p.scale : 0.f);
-        *reinterpret_cast<uint32_t*>(p.dv + off + col) =
-            pack_bf16(live ? acc[0][i] : 0.f, live ? acc[0][i + 1] : 0.f);
+        *reinterpret_cast<uint32_t*>(static_cast<T*>(p.dk) + off + col) =
+            pack2<T>(live ? acc[1][i] * p.scale : 0.f, live ? acc[1][i + 1] * p.scale : 0.f);
+        *reinterpret_cast<uint32_t*>(static_cast<T*>(p.dv) + off + col) =
+            pack2<T>(live ? acc[0][i] : 0.f, live ? acc[0][i + 1] : 0.f);
       } else {
-        *reinterpret_cast<uint32_t*>(p.dq + off + col) =
-            pack_bf16(live ? acc[0][i] * p.scale : 0.f, live ? acc[0][i + 1] * p.scale : 0.f);
+        *reinterpret_cast<uint32_t*>(static_cast<T*>(p.dq) + off + col) =
+            pack2<T>(live ? acc[0][i] * p.scale : 0.f, live ? acc[0][i + 1] * p.scale : 0.f);
       }
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     splash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap k, const __grid_constant__ CUtensorMap v,
                            const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap dout, Params p) {
-  bwd_body<D, true>(k, v, q, dout, p);
+  bwd_body<D, true, T>(k, v, q, dout, p);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     splash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q, const __grid_constant__ CUtensorMap dout,
                          const __grid_constant__ CUtensorMap k, const __grid_constant__ CUtensorMap v, Params p) {
-  bwd_body<D, false>(q, dout, k, v, p);
+  bwd_body<D, false, T>(q, dout, k, v, p);
 }
 
 // ---------------------------------------------------------------- host side
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch(bool dkdv, const CUtensorMap (&maps)[4], const Params& p, int B, cudaStream_t stream) {
-  const void* fn = dkdv ? (const void*)splash_bwd_dkdv_kernel<D> : (const void*)splash_bwd_dq_kernel<D>;
+  const void* fn = dkdv ? (const void*)splash_bwd_dkdv_kernel<D, T> : (const void*)splash_bwd_dq_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
   if (err != cudaSuccess) return err;
   // dK/dV: k, v fixed, q, dO streamed; dQ: q, dO fixed, k, v streamed
@@ -521,19 +530,22 @@ cudaError_t launch(bool dkdv, const CUtensorMap (&maps)[4], const Params& p, int
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// maps: q, k, v, dout, each 4-D over (D, H, rows, B) with 64 x 1 x 64 x 1 boxes
+// maps: q, k, v, dout, each 4-D over (d, H, rows, B) with 64 x 1 x 64 x 1 boxes
+template <typename T>
 int run(bool dkdv, const void* q, const void* k, const void* v, const void* dout, const Params& p, int B, int D,
         void* stream) {
-  if (B <= 0 || p.S <= 0 || p.Sk <= 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || p.S <= 0 || p.Sk <= 0 || D <= 0 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
   const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)p.Hq, (cuuint64_t)p.S, (cuuint64_t)B};
   const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)p.Hkv, (cuuint64_t)p.Sk, (cuuint64_t)B};
   const cuuint32_t box[4] = {64, 1, TILE, 1};
-  if (!encode(&maps[0], q, 4, q_dims, box) || !encode(&maps[1], k, 4, kv_dims, box) ||
-      !encode(&maps[2], v, 4, kv_dims, box) || !encode(&maps[3], dout, 4, q_dims, box))
+  if (!encode<T>(&maps[0], q, 4, q_dims, box) || !encode<T>(&maps[1], k, 4, kv_dims, box) ||
+      !encode<T>(&maps[2], v, 4, kv_dims, box) || !encode<T>(&maps[3], dout, 4, q_dims, box))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D == 128 ? launch<128>(dkdv, maps, p, B, s) : launch<64>(dkdv, maps, p, B, s));
+  Params pd = p;
+  pd.d = D;
+  return (int)(D > 64 ? launch<128, T>(dkdv, maps, pd, B, s) : launch<64, T>(dkdv, maps, pd, B, s));
 }
 
 Params make_params(const float* lse, const float* delta, const int* q_seg, const int* kv_seg, const int* kv_lo,
@@ -547,9 +559,9 @@ Params make_params(const float* lse, const float* delta, const int* q_seg, const
   p.kv_seg = kv_seg;
   p.kv_lo = kv_lo;
   p.q_hi = q_hi;
-  p.dq = static_cast<bf16*>(dq);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
   p.S = S;
   p.Sk = Sk;
   p.Hq = Hq;
@@ -571,10 +583,11 @@ Params make_params(const float* lse, const float* delta, const int* q_seg, const
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes), one per kernel, with one
-// signature.  Each returns a cudaError_t; 0 is success.  The wrapper
-// (ops/cuda/splash_attention.py) checks shapes: contiguous 16-byte aligned
-// bf16 operands, Hq a multiple of Hkv, D 64 or 128.
+// Plain C entry points (loaded with ctypes), one per kernel and element
+// type, with one signature.  Each returns a cudaError_t; 0 is success.  The
+// wrapper (ops/cuda/splash_attention.py) checks shapes: contiguous 16-byte
+// aligned operands of the entry's type, Hq a multiple of Hkv, D <= 128 a
+// multiple of 8.
 #define SPLASH_BWD_ARGS                                                                              \
   const void *q, const void *k, const void *v, const void *dout, const float *lse,                   \
       const float *delta, const int *q_seg, const int *kv_seg, const int *kv_lo, const int *q_hi,    \
@@ -587,9 +600,17 @@ Params make_params(const float* lse, const float* delta, const int* q_seg, const
               use_seg, dropout, keep_thresh, drop_scale, seed0, row0, col0, head0, batch0)
 
 extern "C" int splash_attention_bwd_dkdv_bf16(SPLASH_BWD_ARGS) {
-  return run(true, q, k, v, dout, SPLASH_BWD_PARAMS, B, D, stream);
+  return run<bf16>(true, q, k, v, dout, SPLASH_BWD_PARAMS, B, D, stream);
 }
 
 extern "C" int splash_attention_bwd_dq_bf16(SPLASH_BWD_ARGS) {
-  return run(false, q, k, v, dout, SPLASH_BWD_PARAMS, B, D, stream);
+  return run<bf16>(false, q, k, v, dout, SPLASH_BWD_PARAMS, B, D, stream);
+}
+
+extern "C" int splash_attention_bwd_dkdv_f16(SPLASH_BWD_ARGS) {
+  return run<f16>(true, q, k, v, dout, SPLASH_BWD_PARAMS, B, D, stream);
+}
+
+extern "C" int splash_attention_bwd_dq_f16(SPLASH_BWD_ARGS) {
+  return run<f16>(false, q, k, v, dout, SPLASH_BWD_PARAMS, B, D, stream);
 }

@@ -31,19 +31,27 @@
 //   zeros) into a ring of STAGES stages with full and empty mbarriers.
 //
 //   Warpgroups 1 and 2, the consumers, each own 64 of the item's q rows:
-//     Q as registers        bf16 A fragments, loaded once an item (ldmatrix)
+//     Q as registers        A fragments, loaded once an item (ldmatrix)
 //     S = Q Kᵀ              wgmma m64n64k16, K K-major in shared memory
 //     softmax in registers  an online base-2 softmax: each thread holds two
 //                           rows of the m64n64 accumulator, their max and sum
 //                           reduced over the 4 threads of a quad by shuffles;
 //                           m, l and O's rescaling by exp2(m_old - m_new)
-//     O += (P∘drop) V       wgmma m64n(D)k16, A = P packed to bf16 register
+//     O += (P∘drop) V       wgmma m64n(D)k16, A = P packed to T register
 //                           fragments straight from the accumulator (its
 //                           layout is the A-fragment layout), B = the V tile
 //                           read MN-major
 //   O (64 fp32 a thread at D = 128) stays in registers for the whole item and
-//   is stored as bf16 rows at the end, with lse.  setmaxnreg gives the
+//   is stored as rows of T at the end, with lse.  setmaxnreg gives the
 //   consumers 232 registers and the producer 40.
+//
+// Types and head dims: T is bf16 or f16 (q, k, v and out; P rounds to T
+// before the PV product, as the TPU kernel casts p to v's dtype), and the
+// kernel is instantiated at D = 64 and 128.  A head dim d <= 128 that is a
+// multiple of 8 runs on the next instantiated width: the tensor maps carry
+// the true d as their inner extent, so TMA fills the columns past d with
+// zeros, which add nothing to QKᵀ; O's columns past d are computed on zeros
+// and never stored.
 //
 // A tile wholly below the consumer's diagonal, in range and inside the rows'
 // segment (the producer's flag and the consumer's own) skips the per-element
@@ -73,8 +81,6 @@
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int TILE = 64;      // kv rows of a streamed tile, q rows of a consumer; BLOCK_K in the wrapper
 constexpr int ITEM = 128;     // q rows of an item; BLOCK_Q in the wrapper
 constexpr int STAGES = 4;
@@ -87,9 +93,10 @@ struct Params {
   const int* q_seg;   // (B, S)   (unused when use_seg == 0)
   const int* kv_seg;  // (B, Sk)
   const int* kv_lo;   // (B, cdiv(S, 128))  first 64-row kv tile each 128-row q item visits
-  bf16* out;          // (B, S, Hq, D)
+  void* out;          // (B, S, Hq, d) of T
   float* lse;         // (B, Hq, S)
   int B, S, Sk, Hq, Hkv;
+  int d;              // the head dim, <= the instantiated D, a multiple of 8
   float scale_log2;   // softmax_scale * log2(e)
   int causal, use_seg, dropout;
   uint32_t keep_thresh;
@@ -144,7 +151,7 @@ __device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
 }
 
 // q, k, v: 4-D maps over (D, H, rows, B) with 64 x 1 x 64 x 1 boxes
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     splash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, Params p) {
@@ -313,7 +320,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint32_t qa = qtile + cw * NB * BOX;
     mbar_wait(q_full, qph);
     qph ^= 1;
-    // this consumer's Q rows as bf16 A fragments, loaded once (ldmatrix), as
+    // this consumer's Q rows as A fragments, loaded once (ldmatrix), as
     // the backward's dQ kernel loads Q and dO
     uint32_t qf[D / 16][4];
     {
@@ -337,7 +344,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < D / 16; ++k)
-        wgmma_m64n64k16_rs<0>(s, qf[k], box_desc<false>(kt, k), k);
+        wgmma_m64n64k16_rs<0, T>(s, qf[k], box_desc<false>(kt, k), k);
       wgmma_commit();
 
       // While it runs: which of this thread's 32 elements are valid and, with
@@ -375,7 +382,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_regs(s);
 
       // the online softmax on this thread's two rows, P∘drop packed into the
-      // bf16 A fragments of the k step that covers its columns, O rescaled; one
+      // A fragments of the k step that covers its columns, O rescaled; one
       // loop per (masked, dropout) case
       uint32_t pf[4][4];
       auto softmax = [&](auto masked, auto dropped) {
@@ -407,7 +414,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             pd[e] = pv;
             if constexpr (decltype(dropped)::value) pd[e] = (kept >> (i + e)) & 1 ? __fmul_rn(pv, p.drop_scale) : 0.f;
           }
-          pf[i / 8][(i % 8) / 2] = pack_bf16(pd[0], pd[1]);
+          pf[i / 8][(i % 8) / 2] = pack2<T>(pd[0], pd[1]);
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
@@ -425,7 +432,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // O += (P∘drop) V
       wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < 4; ++k) wgmma_rs<D>(o, pf[k], box_desc<true>(vt, k), 1);
+      for (int k = 0; k < 4; ++k) wgmma_rs<D, T>(o, pf[k], box_desc<true>(vt, k), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -442,7 +449,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 
     // rows rloc and rloc + 8 of this consumer: out = O / l (0 where l = 0),
-    // lse = m·ln2 + ln l (-inf where l = 0)
+    // its first d columns; lse = m·ln2 + ln l (-inf where l = 0)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -450,11 +457,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int r = row_base + rloc + 8 * h;
       if (r >= p.S) continue;
       const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
-      bf16* dst = p.out + (((size_t)b * p.S + r) * p.Hq + hq) * D;
+      T* dst = static_cast<T*>(p.out) + (((size_t)b * p.S + r) * p.Hq + hq) * p.d;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + 2 * (lane % 4), i = 4 * j + 2 * h;
-        *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(o[i] * inv, o[i + 1] * inv);
+        if (8 * j < p.d) *reinterpret_cast<uint32_t*>(dst + col) = pack2<T>(o[i] * inv, o[i + 1] * inv);
       }
       if (lane % 4 == 0)
         p.lse[((size_t)b * p.Hq + hq) * p.S + r] = l[h] == 0.f ? -INFINITY : m[h] * LN2 + logf(l[h]);
@@ -464,9 +471,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ---------------------------------------------------------------- host side
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch(const CUtensorMap (&maps)[3], const Params& p, int B, cudaStream_t stream) {
-  const void* fn = (const void*)splash_fwd_kernel<D>;
+  const void* fn = (const void*)splash_fwd_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
   if (err != cudaSuccess) return err;
   CUtensorMap q = maps[0], k = maps[1], v = maps[2];
@@ -483,37 +490,32 @@ cudaError_t launch(const CUtensorMap (&maps)[3], const Params& p, int B, cudaStr
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes).  Returns a cudaError_t; 0 is
-// success.  The wrapper (ops/cuda/splash_attention.py) checks shapes:
-// contiguous 16-byte aligned bf16 operands, Hq a multiple of Hkv, D 64 or 128.
-extern "C" int splash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, const int* q_seg, const int* kv_seg,
-    const int* kv_lo, void* out, float* lse, int* next_item, int B, int S, int Sk, int Hq, int Hkv, int D,
-    float scale_log2, int causal, int use_seg, int dropout, unsigned int keep_thresh,
-    float drop_scale, unsigned int seed0, unsigned int row0, unsigned int col0,
-    unsigned int head0, unsigned int batch0, void* stream) {
-  if (B <= 0 || S <= 0 || Sk <= 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+template <typename T>
+int run(const void* q, const void* k, const void* v, const int* q_seg, const int* kv_seg, const int* kv_lo,
+        void* out, float* lse, int* next_item, int B, int S, int Sk, int Hq, int Hkv, int D, float scale_log2,
+        int causal, int use_seg, int dropout, unsigned int keep_thresh, float drop_scale, unsigned int seed0,
+        unsigned int row0, unsigned int col0, unsigned int head0, unsigned int batch0, void* stream) {
+  if (B <= 0 || S <= 0 || Sk <= 0 || D <= 0 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
   const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)Hq, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)Sk, (cuuint64_t)B};
   const cuuint32_t box[4] = {64, 1, TILE, 1};
-  if (!encode(&maps[0], q, 4, q_dims, box) || !encode(&maps[1], k, 4, kv_dims, box) ||
-      !encode(&maps[2], v, 4, kv_dims, box))
+  if (!encode<T>(&maps[0], q, 4, q_dims, box) || !encode<T>(&maps[1], k, 4, kv_dims, box) ||
+      !encode<T>(&maps[2], v, 4, kv_dims, box))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.next_item = next_item;
   p.q_seg = q_seg;
   p.kv_seg = kv_seg;
   p.kv_lo = kv_lo;
-  p.out = static_cast<bf16*>(out);
+  p.out = out;
   p.lse = lse;
   p.B = B;
   p.S = S;
   p.Sk = Sk;
   p.Hq = Hq;
   p.Hkv = Hkv;
+  p.d = D;
   p.scale_log2 = scale_log2;
   p.causal = causal;
   p.use_seg = use_seg;
@@ -526,5 +528,25 @@ extern "C" int splash_attention_fwd_bf16(
   p.head0 = head0;
   p.batch0 = batch0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D == 128 ? launch<128>(maps, p, B, s) : launch<64>(maps, p, B, s));
+  return (int)(D > 64 ? launch<128, T>(maps, p, B, s) : launch<64, T>(maps, p, B, s));
 }
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes), one per element type, with one
+// signature.  Each returns a cudaError_t; 0 is success.  The wrapper
+// (ops/cuda/splash_attention.py) checks shapes: contiguous 16-byte aligned
+// operands of the entry's type, Hq a multiple of Hkv, D <= 128 a multiple
+// of 8.
+#define SPLASH_FWD_ARGS                                                                                      \
+  const void *q, const void *k, const void *v, const int *q_seg, const int *kv_seg, const int *kv_lo,        \
+      void *out, float *lse, int *next_item, int B, int S, int Sk, int Hq, int Hkv, int D, float scale_log2, \
+      int causal, int use_seg, int dropout, unsigned int keep_thresh, float drop_scale, unsigned int seed0,  \
+      unsigned int row0, unsigned int col0, unsigned int head0, unsigned int batch0, void *stream
+#define SPLASH_FWD_CALL                                                                                       \
+  q, k, v, q_seg, kv_seg, kv_lo, out, lse, next_item, B, S, Sk, Hq, Hkv, D, scale_log2, causal, use_seg, dropout, \
+      keep_thresh, drop_scale, seed0, row0, col0, head0, batch0, stream
+
+extern "C" int splash_attention_fwd_bf16(SPLASH_FWD_ARGS) { return run<bf16>(SPLASH_FWD_CALL); }
+
+extern "C" int splash_attention_fwd_f16(SPLASH_FWD_ARGS) { return run<f16>(SPLASH_FWD_CALL); }

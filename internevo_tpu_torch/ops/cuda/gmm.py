@@ -14,8 +14,10 @@ to ``out_dtype``.
 
 Dispatch is on the tensors' device and nothing else: CPU tensors run the
 plain versions (``plain_gmm`` / ``plain_tgmm``, one fp32 matmul per group),
-CUDA tensors launch ``csrc/gmm.cu`` or raise.  The kernels take bf16
-operands, contiguous, with every feature dim a multiple of 8; the wrappers
+CUDA tensors launch ``csrc/gmm.cu`` or raise.  The kernels take bf16 or
+fp16 operands of one dtype (the TPU kernel computes in x's dtype),
+contiguous, with every feature dim a multiple of 8, and write the operands'
+dtype or fp32; the wrappers
 read ``group_sizes`` only on the device (a cumulative sum), so no call waits
 on the host.
 """
@@ -23,13 +25,15 @@ on the host.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from .build import load
 
 SOURCE = "gmm.cu"
-OUT_DTYPES = (torch.bfloat16, torch.float32)
+# the operand dtypes: the suffix of each one's C entry points
+DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
 GMM_TILE_M = 128  # output rows of a work item (csrc/gmm.cu GMM_BM): x rows in gmm, dW rows in tgmm
 GMM_TILE_N = 256  # output columns of a work item (GMM_BN)
 GMM_SLICE = 64    # rows of one tgmm contraction slice (GMM_BK)
@@ -39,6 +43,9 @@ BAND = 8          # row tiles of a band of the item order (BAND)
 launches_gmm = 0          # gmm forward (transpose_rhs False)
 launches_gmm_dgrad = 0    # gmm with transpose_rhs (the input grad)
 launches_tgmm = 0         # tgmm (the weight grad)
+# the same launches by instantiation: (kernel "gmm" / "gmm_dgrad" / "tgmm",
+# operand dtype suffix) -> count
+launches_by_case: Counter = Counter()
 
 
 # ------------------------------------------------------------ plain version
@@ -131,13 +138,17 @@ def tgmm_slices(lo: int, hi: int) -> list[tuple[int, int]]:
 # ------------------------------------------------------------------ kernels
 
 
-def _check_operand(name, t, dims, device):
+def _check_operand(name, t, dims, x):
+    """Refuses an operand that no kernel takes: another rank, device or
+    dtype than x's, a dtype other than bf16 or fp16, a layout TMA cannot
+    address."""
     if t.dim() != dims:
         raise ValueError(f"{name} must be {dims}-D: {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA gmm kernels take bf16 operands; {name} is {t.dtype}")
+    if t.device != x.device:
+        raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if t.dtype not in DTYPES or t.dtype != x.dtype:
+        raise TypeError(f"the CUDA gmm kernels take bf16 or fp16 operands of one dtype; {name} is {t.dtype}, "
+                        f"x {x.dtype}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if any(s % 8 for s in t.shape[1:]):
@@ -162,6 +173,11 @@ def _fn(name: str, n_ptrs: int, n_ints: int):
     return fn
 
 
+def _check_out(out_dtype, x, what: str) -> None:
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"the CUDA {what} kernel writes {x.dtype} or fp32 for {x.dtype} operands, not {out_dtype}")
+
+
 def _run(fn, device, args, what: str) -> None:
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -176,20 +192,19 @@ class GmmCall:
 
     def __init__(self, x, w, group_sizes, transpose_rhs: bool = False, out_dtype=None):
         out_dtype = out_dtype or x.dtype
-        _check_operand("x", x, 2, x.device)
-        _check_operand("w", w, 3, x.device)
+        _check_operand("x", x, 2, x)
+        _check_operand("w", w, 3, x)
         E = w.shape[0]
         Kc, F = (w.shape[2], w.shape[1]) if transpose_rhs else (w.shape[1], w.shape[2])
         if x.shape[1] != Kc:
             raise ValueError(f"x {tuple(x.shape)} does not contract with w {tuple(w.shape)} "
                              f"(transpose_rhs={transpose_rhs})")
-        if out_dtype not in OUT_DTYPES:
-            raise TypeError(f"the CUDA gmm kernel writes bf16 or fp32, not {out_dtype}")
+        _check_out(out_dtype, x, "gmm")
         load(SOURCE)  # built before any work: a machine without the toolkit fails here
         self.ends = _group_ends(group_sizes, E, x.device)
         self.out = torch.empty(x.shape[0], F, dtype=out_dtype, device=x.device)
         self.transpose_rhs = transpose_rhs
-        self.device = x.device
+        self.device, self.dtype = x.device, DTYPES[x.dtype]
         self.args = [x.data_ptr(), w.data_ptr(), self.ends.data_ptr(), self.out.data_ptr(),
                      x.shape[0], Kc, F, E, int(transpose_rhs), int(out_dtype == torch.float32)]
         self.inputs = (x, w)  # kept alive while the kernel may read them
@@ -198,11 +213,12 @@ class GmmCall:
         global launches_gmm, launches_gmm_dgrad
         if self.out.shape[0] == 0:
             return
-        _run(_fn("gmm_bf16", 4, 6), self.device, self.args, "gmm")
+        _run(_fn(f"gmm_{self.dtype}", 4, 6), self.device, self.args, "gmm")
         if self.transpose_rhs:
             launches_gmm_dgrad += 1
         else:
             launches_gmm += 1
+        launches_by_case[("gmm_dgrad" if self.transpose_rhs else "gmm", self.dtype)] += 1
 
 
 class TgmmCall:
@@ -210,18 +226,17 @@ class TgmmCall:
     With no rows, ``out`` is already the zeros and nothing is launched."""
 
     def __init__(self, x, dy, group_sizes, E: int, out_dtype=torch.float32):
-        _check_operand("x", x, 2, x.device)
-        _check_operand("dy", dy, 2, x.device)
+        _check_operand("x", x, 2, x)
+        _check_operand("dy", dy, 2, x)
         if dy.shape[0] != x.shape[0]:
             raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} differ in rows")
-        if out_dtype not in OUT_DTYPES:
-            raise TypeError(f"the CUDA tgmm kernel writes bf16 or fp32, not {out_dtype}")
+        _check_out(out_dtype, x, "tgmm")
         load(SOURCE)
         self.ends = _group_ends(group_sizes, E, x.device)
         n = x.shape[0]
         self.out = (torch.empty if n else torch.zeros)(E, x.shape[1], dy.shape[1], dtype=out_dtype,
                                                        device=x.device)
-        self.device = x.device
+        self.device, self.dtype = x.device, DTYPES[x.dtype]
         self.args = [x.data_ptr(), dy.data_ptr(), self.ends.data_ptr(), self.out.data_ptr(),
                      n, x.shape[1], dy.shape[1], E, int(out_dtype == torch.float32)]
         self.inputs = (x, dy)
@@ -230,8 +245,9 @@ class TgmmCall:
         global launches_tgmm
         if self.inputs[0].shape[0] == 0:
             return
-        _run(_fn("tgmm_bf16", 4, 5), self.device, self.args, "tgmm")
+        _run(_fn(f"tgmm_{self.dtype}", 4, 5), self.device, self.args, "tgmm")
         launches_tgmm += 1
+        launches_by_case[("tgmm", self.dtype)] += 1
 
 
 # ------------------------------------------------------------------ dispatch

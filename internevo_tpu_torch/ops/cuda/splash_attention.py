@@ -10,9 +10,14 @@ v (``splash_attention_with_lse`` in its lse too, as the JAX ``custom_vjp``).
 
 Dispatch is on the tensors' device and nothing else: CPU tensors run the
 plain versions (``plain_forward`` / ``plain_backward``, dense torch over a
-materialised score tensor), CUDA tensors launch
-``csrc/splash_attention_fwd.cu`` forward and ``csrc/splash_attention_bwd.cu``
-backward, or raise.  Inside a recomputed layer (``core/remat.py``) the
+materialised score tensor), CUDA tensors launch a kernel or raise.  On the
+card the dtype picks the kernels: bf16 and fp16 q/k/v go to the wgmma
+kernels, ``csrc/splash_attention_fwd.cu`` forward and
+``csrc/splash_attention_bwd.cu`` backward; fp32 goes to the CUDA-core
+kernels of ``csrc/splash_attention_f32.cu`` (full fp32 products, as the TPU
+kernel forms on fp32 inputs).  Every head dim up to 128 that is a multiple
+of 8 is taken; a larger one, or one that TMA's 16-byte strides cannot
+address, is refused.  Inside a recomputed layer (``core/remat.py``) the
 forward's (out, lse) are kept from the first forward (``remat.FLASH``), so
 the recompute hands them to the backward without launching the forward
 kernel again.
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import Optional
 
 import numpy as np
@@ -40,6 +46,10 @@ from .build import load
 LOG2E = 1.4426950408889634
 SOURCE = "splash_attention_fwd.cu"
 BWD_SOURCE = "splash_attention_bwd.cu"
+F32_SOURCE = "splash_attention_f32.cu"
+# the kernels' dtypes: the suffix of each one's C entry points
+DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+MAX_HEAD_DIM = 128
 # the forward's (q, kv) block sizes: its 128-row q items walk 64-row kv
 # tiles from kv_lo (ITEM and TILE in its source)
 BLOCK_Q = 128
@@ -49,6 +59,9 @@ BLOCK_K = 64
 # kv tiles from kv_lo (TILE and ITEM in its source)
 BWD_DKDV_BLOCKS = (64, 128)
 BWD_DQ_BLOCKS = (128, 64)
+# the fp32 kernels' blocks: 64-row items walk 64-row tiles, forward and both
+# backward kernels (ROWS in their source)
+F32_BLOCKS = (64, 64)
 # plain version: the largest (B, heads, S, Sk) score slab materialised at once
 _PLAIN_SLAB_ELEMS = 1 << 28
 
@@ -56,6 +69,9 @@ _PLAIN_SLAB_ELEMS = 1 << 28
 launches = 0             # forward
 launches_bwd_dkdv = 0    # backward, dK/dV kernel
 launches_bwd_dq = 0      # backward, dQ kernel
+# the same launches by instantiation: (kernel "fwd" / "bwd_dkdv" / "bwd_dq",
+# dtype suffix, head dim) -> count
+launches_by_case: Counter = Counter()
 
 
 # ------------------------------------------------------------------ dropout
@@ -291,6 +307,9 @@ def plain_backward(q, k, v, out, lse, do, dlse=None, segment_ids=None, kv_segmen
 
 
 def _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids):
+    """Refuses what no kernel takes: q/k/v of another dtype than bf16, fp16
+    or fp32, or of mixed dtypes; a head dim above 128 or not a multiple of 8;
+    non-contiguous or unaligned operands; misshapen segment ids."""
     B, S, Hq, D = q.shape
     if k.shape != v.shape or k.dim() != 4 or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k/v must be (B, Sk, Hkv, D) like q: {tuple(q.shape)}, "
@@ -300,12 +319,14 @@ def _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA splash kernels take bf16 q/k/v; {name} is {t.dtype}")
+        if t.dtype not in DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"the CUDA splash kernels take bf16, fp16 or fp32 q/k/v of one dtype; "
+                            f"{name} is {t.dtype}, q {q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if D not in (64, 128):
-        raise ValueError(f"the CUDA splash kernels take head_dim 64 or 128, not {D}")
+    if not 0 < D <= MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"the CUDA splash kernels take a head_dim of at most {MAX_HEAD_DIM} that is a "
+                         f"multiple of 8 (TMA's 16-byte strides), not {D}")
     for name, t, n in (("segment_ids", segment_ids, S), ("kv_segment_ids", kv_segment_ids, k.shape[1])):
         if t is not None and (t.shape != (B, n) or t.device != q.device):
             raise ValueError(f"{name} must be ({B}, {n}) on {q.device}: {tuple(t.shape)} on {t.device}")
@@ -343,9 +364,19 @@ def _dropout_args(dropout_rate, dropout_seed):
     return [1, _keep_thresh(dropout_rate), float(1.0 / (1.0 - dropout_rate))] + _seed_u32(dropout_seed)
 
 
-def _kernel_fn():
-    """The forward's C entry point, built and loaded on first use, with its ctypes signature."""
-    fn = load(SOURCE).splash_attention_fwd_bf16
+def _sources(dtype) -> tuple[str, str]:
+    """(forward source, backward source) of the kernels that take ``dtype``."""
+    return (F32_SOURCE, F32_SOURCE) if dtype == torch.float32 else (SOURCE, BWD_SOURCE)
+
+
+def _count(kernel: str, q) -> None:
+    launches_by_case[(kernel, DTYPES[q.dtype], q.shape[-1])] += 1
+
+
+def _kernel_fn(dtype):
+    """The forward's C entry point for ``dtype``, built and loaded on first
+    use, with its ctypes signature (one for every dtype)."""
+    fn = getattr(load(_sources(dtype)[0]), f"splash_attention_fwd_{DTYPES[dtype]}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
@@ -354,10 +385,10 @@ def _kernel_fn():
     return fn
 
 
-def _bwd_fn(name: str):
-    """A backward C entry point (``splash_attention_bwd_{dkdv,dq}_bf16``; one
-    signature), built and loaded on first use."""
-    fn = getattr(load(BWD_SOURCE), name)
+def _bwd_fn(name: str, dtype):
+    """A backward C entry point (``splash_attention_bwd_{dkdv,dq}_<dtype>``;
+    one signature), built and loaded on first use."""
+    fn = getattr(load(_sources(dtype)[1]), f"{name}_{DTYPES[dtype]}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
@@ -374,15 +405,16 @@ class ForwardCall:
     def __init__(self, q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv, dropout_rate,
                  dropout_seed):
         _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids)
-        load(SOURCE)  # built before any work: a machine without the toolkit fails here
+        load(_sources(q.dtype)[0])  # built before any work: a machine without the toolkit fails here
         B, S, Hq, D = q.shape
         Sk, Hkv = k.shape[1], k.shape[2]
         # its control data: kv_lo alone, at the forward's blocks
-        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, (BLOCK_Q, BLOCK_K))
+        blocks = F32_BLOCKS if q.dtype == torch.float32 else (BLOCK_Q, BLOCK_K)
+        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, blocks)
         self.out = torch.empty_like(q)
         self.lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
         self.next_item = torch.empty(1, dtype=torch.int32, device=q.device)
-        self.device = q.device
+        self.device, self.dtype = q.device, q.dtype
         self.args = ([t.data_ptr() for t in (q, k, v, *self.segs, self.out, self.lse, self.next_item)]
                      + [B, S, Sk, Hq, Hkv, D, float(scale * LOG2E), int(causal), int(segment_ids is not None),
                         *_dropout_args(dropout_rate, dropout_seed)])
@@ -390,12 +422,13 @@ class ForwardCall:
 
     def launch(self) -> None:
         global launches
-        fn = _kernel_fn()
+        fn = _kernel_fn(self.dtype)
         with torch.cuda.device(self.device):
             err = fn(*self.args, torch.cuda.current_stream(self.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"splash_attention_fwd launch failed: cudaError {err}")
         launches += 1
+        _count("fwd", self.inputs[0])
 
 
 def _kernel_forward(q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv,
@@ -415,7 +448,7 @@ class BackwardCall:
     def __init__(self, q, k, v, out, lse, do, dlse, segment_ids, kv_segment_ids, scale, causal,
                  cross_kv, dropout_rate, dropout_seed):
         _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids)
-        load(BWD_SOURCE)  # built before any work: a machine without the toolkit fails here
+        load(_sources(q.dtype)[1])  # built before any work: a machine without the toolkit fails here
         B, S, Hq, D = q.shape
         Sk, Hkv = k.shape[1], k.shape[2]
         do = do.contiguous()  # the cotangent through reshape/out_proj need not be
@@ -430,11 +463,12 @@ class BackwardCall:
         if dlse is not None:
             delta = delta - dlse.float()
         self.delta = delta.contiguous()
-        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, BWD_DQ_BLOCKS,
-                                  BWD_DKDV_BLOCKS)
+        f32 = q.dtype == torch.float32
+        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv,
+                                  F32_BLOCKS if f32 else BWD_DQ_BLOCKS, F32_BLOCKS if f32 else BWD_DKDV_BLOCKS)
         self.do = do
         self.dq, self.dk, self.dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        self.device = q.device
+        self.device, self.dtype = q.device, q.dtype
         ptrs = [t.data_ptr() for t in (q, k, v, do, lse, self.delta, *self.segs,
                                        self.dq, self.dk, self.dv)]
         self.args = ptrs + [B, S, Sk, Hq, Hkv, D, float(scale), float(scale * LOG2E), int(causal),
@@ -442,7 +476,7 @@ class BackwardCall:
         self.inputs = (q, k, v, lse)  # kept alive while the kernels may read them
 
     def _launch(self, name: str) -> None:
-        fn = _bwd_fn(name)
+        fn = _bwd_fn(name, self.dtype)
         with torch.cuda.device(self.device):
             err = fn(*self.args, torch.cuda.current_stream(self.device).cuda_stream)
         if err != 0:
@@ -450,13 +484,15 @@ class BackwardCall:
 
     def launch_dkdv(self) -> None:
         global launches_bwd_dkdv
-        self._launch("splash_attention_bwd_dkdv_bf16")
+        self._launch("splash_attention_bwd_dkdv")
         launches_bwd_dkdv += 1
+        _count("bwd_dkdv", self.inputs[0])
 
     def launch_dq(self) -> None:
         global launches_bwd_dq
-        self._launch("splash_attention_bwd_dq_bf16")
+        self._launch("splash_attention_bwd_dq")
         launches_bwd_dq += 1
+        _count("bwd_dq", self.inputs[0])
 
 
 def _kernel_backward(q, k, v, out, lse, do, dlse, segment_ids, kv_segment_ids, scale, causal,

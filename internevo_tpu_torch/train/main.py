@@ -68,8 +68,9 @@ def run_training(config: str | os.PathLike | dict | Config, params: Optional[dic
     Returns ``records`` (one dict a step run: loss, grad_norm, moe_loss,
     tgs, tflops, time_cost, lr, ...), ``load_wait_s`` (seconds each step
     waited in ``load_new_batch``), ``setup_s`` (seconds to build model,
-    optimizer, loader and trainer and to resume), ``evals`` (one dict an
-    eval: step, seconds, the per-loader results), ``diags`` (the device
+    optimizer, loader and trainer, to resume and to allocate the saves'
+    pinned staging buffers), ``staging_s`` (the last of those), ``evals``
+    (one dict an eval: step, seconds, the per-loader results), ``diags`` (the device
     benchmarks that ran), ``saved_after`` (the batches whose settling
     saved a checkpoint), ``stopped`` (a stop-file quit), and ``config``,
     ``model``, ``train_state``, ``engine``, ``ckpt_manager``, ``writer``
@@ -93,6 +94,7 @@ def run_training(config: str | os.PathLike | dict | Config, params: Optional[dic
     ckpt_manager = CheckpointManager(config.ckpt, engine=engine, train_state=train_state, train_dl=train_dl,
                                      model_config=config.model)
     ckpt_manager.try_resume_training(train_state)
+    staging_s = ckpt_manager.allocate_staging()  # the first save's pinned buffers, outside the loop
 
     job_name = config.get("JOB_NAME", "internevo_tpu")
     writer = Writer(job_name=job_name, launch_time=time.strftime("%m-%d-%H:%M:%S"),
@@ -213,7 +215,8 @@ def run_training(config: str | os.PathLike | dict | Config, params: Optional[dic
         if profiler is not None:
             _stop_profiler(profiler, dev, profile_dir)
         writer.close()
-    return {"records": records, "load_wait_s": load_wait_s, "setup_s": setup_s, "evals": evals, "diags": diags,
+    return {"records": records, "load_wait_s": load_wait_s, "setup_s": setup_s, "staging_s": staging_s,
+            "evals": evals, "diags": diags,
             "saved_after": saved_after, "stopped": stopped, "config": config, "model": model,
             "train_state": train_state, "engine": engine, "ckpt_manager": ckpt_manager, "writer": writer,
             "memory_profiler": memory_profiler}

@@ -43,6 +43,8 @@ def get_megatron_flops(
 # no sparsity).
 GPU_PEAK_TFLOPS = {"H100": 989.0}
 GPU_PEAK_BYTES_PER_S = {"H100": 3.35e12}
+# fp32 FMAs outside the tensor cores (the fp32 splash kernels' rate)
+GPU_PEAK_FP32_TFLOPS = {"H100": 67.0}
 
 
 def _lookup(table: dict, what: str, device_name: str | None) -> float:
@@ -57,6 +59,11 @@ def device_peak_tflops(device_name: str | None = None) -> float:
     """bf16 dense peak of the named card (default: CUDA device 0).  Raises for
     a card the table does not know, rather than guessing."""
     return _lookup(GPU_PEAK_TFLOPS, "bf16 peak", device_name)
+
+
+def device_peak_fp32_tflops(device_name: str | None = None) -> float:
+    """fp32 peak of the named card's CUDA cores (default: CUDA device 0)."""
+    return _lookup(GPU_PEAK_FP32_TFLOPS, "fp32 peak", device_name)
 
 
 def device_peak_bandwidth(device_name: str | None = None) -> float:

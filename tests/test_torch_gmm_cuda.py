@@ -183,8 +183,10 @@ def test_gmm_is_deterministic(dev):
 def test_gmm_refuses_what_it_does_not_take(dev):
     x, w, _ = _inputs(dev, 64, 128, 128, 2)
     group_sizes = torch.tensor([32, 32], device=dev)
-    with pytest.raises(TypeError, match="bf16"):
+    with pytest.raises(TypeError, match="bf16 or fp16"):
         gmm.gmm(x.float(), w.float(), group_sizes)
+    with pytest.raises(TypeError, match="of one dtype"):
+        gmm.gmm(x.half(), w, group_sizes)
     with pytest.raises(ValueError, match="multiples of 8"):
         gmm.gmm(x[:, :100].contiguous(), w[:, :100].contiguous(), group_sizes)
     with pytest.raises(ValueError, match="contiguous"):

@@ -124,11 +124,16 @@ def test_kernel_matches_plain(dev, S, Hq, Hkv, D, cross, drop, causal, variant):
 
 def test_kernel_refuses_what_it_does_not_take(dev):
     q, k, v, seg = _inputs(dev, 1, 128, 2, 2, 128)
-    with pytest.raises(TypeError, match="bf16"):
-        splash.splash_attention(q.float(), k.float(), v.float(), seg)
+    with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+        splash.splash_attention(q.double(), k.double(), v.double(), seg)
+    with pytest.raises(TypeError, match="of one dtype"):
+        splash.splash_attention(q.half(), k, v, seg)
     with pytest.raises(ValueError, match="head_dim"):
-        splash.splash_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
-                                v[..., :96].contiguous(), seg)
+        splash.splash_attention(q[..., :100].contiguous(), k[..., :100].contiguous(),
+                                v[..., :100].contiguous(), seg)
+    big = torch.zeros(1, 128, 2, 136, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        splash.splash_attention(big, big, big, seg)
     with pytest.raises(ValueError, match="contiguous"):
         splash.splash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, seg)
 

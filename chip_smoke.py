@@ -11,10 +11,10 @@ the run with a non-zero exit:
 2. build         the CUDA kernels compiled from ``internevo_tpu_torch/csrc``
                  (one nvcc per source, in parallel) and the Triton AdamW and
                  dropout kernels JIT-compiled, with registers and spills; a
-                 wgmma source whose ``ptxas`` log shows a spill fails the
-                 run, and so does a bf16/fp16 splash or gmm kernel whose
-                 SASS holds no ``HGMMA`` (wgmma) or any ``HMMA`` (legacy
-                 mma.sync); the fp32 splash source's log is printed;
+                 source whose ``ptxas`` log shows a spill fails the run,
+                 and so does a splash (bf16, fp16 or fp32) or gmm kernel
+                 whose SASS holds no ``HGMMA`` (wgmma) or any ``HMMA``
+                 (legacy mma.sync);
 3. kernel        the splash forward kernel against its plain version at the
                  InternLM-7B scoring shapes, bf16 on the card, five cases and
                  one planted fault the check must catch, with timings beside
@@ -75,7 +75,9 @@ the run with a non-zero exit:
                  packed 4096-token row of 7B width, bf16, forward and
                  backward, bit for bit, at rates 0.1 and 0.5; a planted
                  fault (the next layer's key) the check must refuse; timed
-                 beside its bound and the plain version;
+                 beside its bound (the larger of its bytes and its hash's
+                 integer operations at SMs x 64 INT32 lanes x the SM
+                 clock) and the plain version;
 16. remat_grads  InternLM2 widths (``configs/7B_internlm2.py``), 2 layers,
                  residual and attention dropout at 0.1: the grads under
                  every recompute tier (``checkpoint=1`` plain, with
@@ -138,19 +140,27 @@ the run with a non-zero exit:
                  most 2048), GQA 32/8: B1 forward and B2's dK/dV and dQ in
                  bf16 and fp16 at head dims 16, 32, 64, 80, 96, 128 (the
                  wgmma kernels, run on the 64- or 128-wide instantiation)
-                 and fp32 at 16, 32, 64, 128 (the CUDA-core kernels), one
-                 dropout case a dtype, each against ``plain_forward`` /
-                 ``plain_backward`` and refusing its planted faults (kv_lo +
-                 1, q_hi - 1), each timed beside its bound, its plain
-                 version and SDPA in its dtype (fp32: the math backend), one
-                 head dim a dtype also beside compiled ``flex_attention``;
+                 and fp32 at 16, 32, 64, 128 (the same kernels on three
+                 bf16 pieces an operand), one dropout case a dtype, each
+                 against ``plain_forward`` / ``plain_backward``, refusing its
+                 planted faults (kv_lo + 1, q_hi - 1) and giving the same
+                 backward bits twice, each timed beside its bound (fp32:
+                 the bf16 tensor-core peak / 6, and the CUDA-core bound
+                 beside it), its plain version and SDPA in its dtype (fp32:
+                 the math backend, and the efficient backend with the mask
+                 as a float bias), one head dim a dtype also beside
+                 compiled ``flex_attention``;
                  then gmm, gmm dgrad and tgmm in fp16 at the kernel_gmm
                  layouts against their plain versions, a planted fault, and
-                 timed beside ``torch._grouped_mm``;
+                 timed beside ``torch._grouped_mm``; then the fp32 pieces'
+                 split kernel bit for bit against ``plain_split`` with a
+                 planted fault (the lo piece dropped), timed beside its
+                 bound and plain version;
 25. demo_entry   ``python -m internevo_tpu_torch.train.main --config
                  configs/demo.py`` (``train/main.py::main``, the file
                  unmodified, no ``--device``): 20 steps at fp32 and head dim
-                 16 through the fp32 splash kernels and fused AdamW, no
+                 16 through the splash kernels' fp32 instantiations (and
+                 the pieces' split kernel) and fused AdamW, no
                  plain attention; losses and grad norms held against the
                  same run with ``--device cpu``;
 26. fp16_training  ``configs/7B_sft.py`` with ``model.dtype`` fp16 and the
@@ -206,7 +216,7 @@ from internevo_tpu_torch.models.base import block_forward, make_model_def
 from internevo_tpu_torch.models.modeling_moe import moe_ffn
 from internevo_tpu_torch.models.moe import dropless, gshard
 from internevo_tpu_torch.ops.attention import flash_attention
-from internevo_tpu_torch.ops.cuda import build, dropout, fused_adamw, gmm
+from internevo_tpu_torch.ops.cuda import build, dropout, fused_adamw, gmm, pieces
 from internevo_tpu_torch.ops.cuda import splash_attention as splash
 from internevo_tpu_torch.ops.fused_ce import fused_norm_head_ce
 from internevo_tpu_torch.solver.optimizer import tree_leaves, tree_leaves_with_path, tree_map
@@ -219,7 +229,8 @@ from internevo_tpu_torch.train import main as train_main
 from internevo_tpu_torch.train.main import run_training
 from internevo_tpu_torch.train.pipeline import build_model, initialize_model
 from internevo_tpu_torch.utils.storage_manager import StorageManager
-from internevo_tpu_torch.utils.common import (device_peak_bandwidth, device_peak_fp32_tflops,
+from internevo_tpu_torch.utils.common import (device_peak_bandwidth, device_peak_fp32_exact_tflops,
+                                              device_peak_fp32_tflops,
                                               device_peak_tflops, get_megatron_flops)
 
 REPO = Path(__file__).resolve().parent
@@ -498,14 +509,14 @@ def sass_mma_counts(source: str) -> dict:
     return counts
 
 
-# the wgmma sources: each entry must issue HGMMA and no HMMA, and no spill
-# is taken (a spill serialises their mainloops); the fp32 splash kernels run
-# on the CUDA cores
+# the wgmma sources (every splash instantiation, fp32's included, and gmm):
+# each entry must issue HGMMA and no HMMA, and no spill is taken (a spill
+# serialises their mainloops)
 WGMMA_SOURCES = (splash.SOURCE, splash.BWD_SOURCE, gmm.SOURCE)
 
 
 def phase_build(dev):
-    sources = (*WGMMA_SOURCES, splash.F32_SOURCE)
+    sources = WGMMA_SOURCES
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         logs = list(pool.map(lambda src: build.build(src)[1], sources))
@@ -515,11 +526,9 @@ def phase_build(dev):
     spilled, legacy = [], {}
     for src, log in zip(sources, logs):
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        mma = sass_mma_counts(src) if src in WGMMA_SOURCES else None
+        mma = sass_mma_counts(src)
         emit({"phase": "build", "source": f"internevo_tpu_torch/csrc/{src}", "seconds": cuda_s,
               "ptxas": ptxas, "sass_hgmma_hmma": mma})
-        if src not in WGMMA_SOURCES:
-            continue
         # a spill serialises the wgmma mainloop (ptxas C7514/C7518): refuse it
         if any(int(b) for ln in ptxas for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)):
             spilled.append(src)
@@ -1572,9 +1581,14 @@ def phase_kernel_dropout(dev):
     plain_ms = cuda_time_ms(lambda: dropout.plain_dropout(x, key, rate), warmup=1, reps=3)
     philox_ms = cuda_time_ms(lambda: F.dropout(x, rate))
     n = x.numel()
-    # h read once and the output written once; the hash's integer operations
-    # enter no bound, the data sheet giving no integer rate
+    # h read once and the output written once, and the hash's integer
+    # operations at the card's INT32 rate: the larger
     b = bound(0, 2 * nbytes(x))
+    rate_ops, how = int32_ops_per_s()
+    int_ms = dropout.HASH_INT_OPS * n / rate_ops * 1e3
+    b.update(bound_bytes_ms=b["bound_ms"], bound_int_ms=int_ms, int32_rate=how)
+    if int_ms > b["bound_ms"]:
+        b.update(bound_ms=int_ms, bound_by="operations")
     emit({"phase": "kernel_dropout", "case": f"timing rate {rate}", "elements": n, "kernel_ms": kernel_ms,
           "plain_ms": plain_ms, "torch_dropout_ms": philox_ms,
           "torch_dropout": "F.dropout (Philox masks: another function, a yardstick only)", **b,
@@ -1584,13 +1598,22 @@ def phase_kernel_dropout(dev):
             "max_abs_err": worst, **b}
 
 
+def int32_ops_per_s() -> tuple:
+    """The card's INT32 rate, SMs x 64 INT32 lanes an SM x the SM clock (the
+    largest ``nvidia-smi`` reports), with how it was reckoned."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    return sms * 64 * mhz * 1e6, f"{sms} SMs x 64 INT32 lanes x {mhz:g} MHz (nvidia-smi clocks.max.sm)"
+
+
 def kernel_counts() -> tuple:
     return (splash.launches, splash.launches_bwd_dkdv, splash.launches_bwd_dq, dropout.launches,
             fused_adamw.launches)
 
 
 def zero_counts() -> None:
-    splash.launches = splash.launches_bwd_dkdv = splash.launches_bwd_dq = dropout.launches = 0
+    splash.launches = splash.launches_bwd_dkdv = splash.launches_bwd_dq = dropout.launches = pieces.launches = 0
     fused_adamw.launches = gmm.launches_gmm = gmm.launches_gmm_dgrad = gmm.launches_tgmm = 0
 
 
@@ -2212,26 +2235,49 @@ def phase_checkpoint_resume(dev, folder: Path, layers: int, first: dict) -> dict
 
 def coverage_peak(dtype) -> float:
     """The peak rate of a splash instantiation's operations: the tensor
-    cores' for bf16 and fp16, the CUDA cores' fp32 FMAs for fp32."""
-    return device_peak_fp32_tflops() if dtype == torch.float32 else device_peak_tflops()
+    cores' for bf16 and fp16; for fp32 the fp32-exact rate of the six bf16
+    products of three pieces an operand (the bf16 peak / 6)."""
+    return device_peak_fp32_exact_tflops() if dtype == torch.float32 else device_peak_tflops()
 
 
-def sdpa_library(q, k, v, seg, dtype):
-    """SDPA in q's dtype (fp32: the math backend) with the (causal ∧ same
-    segment) bool mask, k and v repeated to q's heads: (forward ms under
-    no_grad, backward-alone ms), the yardstick of a splash case."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+def sdpa_timed(qt, kt, vt, mask, backend=None):
+    """(forward ms under no_grad, backward-alone ms, out) of SDPA on one
+    backend (None: torch's choice)."""
+    from torch.nn.attention import sdpa_kernel
 
-    rep = q.shape[2] // k.shape[2]
-    (qt, kt, vt), mask = sdpa_inputs(q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2), seg)
-    ctx = sdpa_kernel(SDPBackend.MATH) if dtype == torch.float32 else contextlib.nullcontext()
-    with ctx:
+    with sdpa_kernel(backend) if backend is not None else contextlib.nullcontext():
         with torch.no_grad():
             fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 1, 5)
         o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         dot = torch.randn_like(o)
         bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), 1, 5)
-    return fwd_ms, bwd_ms, (qt.detach(), kt.detach(), vt.detach())
+    return fwd_ms, bwd_ms, o.detach()
+
+
+def sdpa_library(q, k, v, seg, dtype, want_out=None):
+    """SDPA in q's dtype (fp32: the math backend) with the (causal ∧ same
+    segment) bool mask, k and v repeated to q's heads: (forward ms under
+    no_grad, backward-alone ms, leaves, fp32 extras), the yardstick of a
+    splash case.  For fp32 the extras time the efficient backend too, the
+    mask as a float bias (0 or -inf), with its out's relative L2 against
+    ``want_out`` (its fp32 products may not be exact), or its refusal."""
+    from torch.nn.attention import SDPBackend
+
+    rep = q.shape[2] // k.shape[2]
+    (qt, kt, vt), mask = sdpa_inputs(q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2), seg)
+    f32 = dtype == torch.float32
+    fwd_ms, bwd_ms, _ = sdpa_timed(qt, kt, vt, mask, SDPBackend.MATH if f32 else None)
+    extras = {}
+    if f32:
+        bias = torch.zeros(mask.shape, device=q.device).masked_fill_(~mask, -math.inf)
+        try:
+            e_fwd, e_bwd, o = sdpa_timed(qt, kt, vt, bias, SDPBackend.EFFICIENT_ATTENTION)
+            extras = {"library_efficient_ms": [e_fwd, e_bwd],
+                      "library_efficient_out_rel_l2": rel_l2(o.transpose(1, 2), want_out)}
+        except RuntimeError as e:  # the yardstick only: the port never calls SDPA
+            extras = {"library_efficient_ms": None, "library_efficient_refused": str(e)[:300]}
+        del bias
+    return fwd_ms, bwd_ms, (qt.detach(), kt.detach(), vt.detach()), extras
 
 
 def coverage_case(dev, g, seg, name, D, rate) -> dict:
@@ -2274,6 +2320,12 @@ def coverage_case(dev, g, seg, name, D, rate) -> dict:
         r[f"{n}_rel_l2"] = rel_l2(a, b)
         r[f"{n}_max_abs_err"] = float((a.float() - b.float()).abs().max())
         r["finite"] = r["finite"] and bool(torch.isfinite(a.float()).all())
+    again = splash.BackwardCall(*bwd_args, False, rate, seed)  # no atomics: the same bits twice
+    again.launch_dkdv()
+    again.launch_dq()
+    torch.cuda.synchronize()
+    r["backward_repeats_bitwise"] = all(torch.equal(a, b) for a, b in zip(got, (again.dq, again.dk, again.dv)))
+    del again
     planted = splash.BackwardCall(*bwd_args, False, rate, seed)
     planted.segs[2].add_(1)  # kv_lo: dQ's walk starts a tile late
     planted.segs[3].sub_(1)  # q_hi: dK/dV's walk ends a tile early
@@ -2284,29 +2336,46 @@ def coverage_case(dev, g, seg, name, D, rate) -> dict:
         r[f"planted_{n}_rel_l2"] = rel_l2(a, b)
     del planted
     r["held"] = (r["out_rel_l2"] <= lim["out"] and r["lse_max_abs_err"] <= lim["lse"] and r["empty_rows_agree"]
-                 and r["finite"] and all(r[f"{n}_rel_l2"] <= lim["grad"] for n in ("dq", "dk", "dv")))
+                 and r["finite"] and all(r[f"{n}_rel_l2"] <= lim["grad"] for n in ("dq", "dk", "dv"))
+                 and r["backward_repeats_bitwise"])
     r["planted_refused"] = (r["planted_kv_lo_rel_l2"] > lim["out"]
                             and all(r[f"planted_{n}_rel_l2"] > lim["grad"] for n in ("dq", "dk", "dv")))
     if not rate:
         flops = attention_flops(seg.cpu().numpy(), HEADS, D)  # the function's work at its own head dim
         peak = coverage_peak(dtype)
         lse_bytes = 4 * TRAIN_B * HEADS * S
+        f32 = dtype == torch.float32
+        # fp32: the forward's ms includes its launch's split of q, k, v into
+        # pieces, dK/dV's the backward's split of q, k, v, dO
         r["fwd"] = {"ms": cuda_time_ms(splash.ForwardCall(*fwd_args).launch),
                     "plain_ms": cuda_time_ms(lambda: splash.plain_forward(q, k, v, seg, None, scale), 1, 3),
                     **bound(flops, nbytes(q, k, v, seg) + nbytes(q) + lse_bytes, peak)}
         timed = splash.BackwardCall(*bwd_args, False, 0.0, None)
         plain_bwd_ms = cuda_time_ms(lambda: splash.plain_backward(*bwd_args), 1, 3)
         reads = nbytes(q, k, v, do, seg) + 2 * lse_bytes
-        r["bwd_dkdv"] = {"ms": cuda_time_ms(timed.launch_dkdv), "plain_ms": plain_bwd_ms,
+        dkdv = (lambda: (timed.split(), timed.launch_dkdv())) if f32 else timed.launch_dkdv
+        r["bwd_dkdv"] = {"ms": cuda_time_ms(dkdv), "plain_ms": plain_bwd_ms,
                          **bound(2 * flops, reads + nbytes(k, v), peak)}
         r["bwd_dq"] = {"ms": cuda_time_ms(timed.launch_dq), "plain_ms": plain_bwd_ms,
                        **bound(0.5 * flops, nbytes(q), peak)}
+        if f32:
+            r["split_ms"] = {"fwd": cuda_time_ms(lambda: pieces.split_pieces(q, k, v)),
+                             "bwd": cuda_time_ms(timed.split),
+                             "fwd_plain": cuda_time_ms(lambda: [pieces.plain_split(t) for t in (q, k, v)])}
+            for kname, work in (("fwd", flops), ("bwd_dkdv", 2 * flops), ("bwd_dq", 0.5 * flops)):
+                r[kname].update(bound_peak="bf16 tensor-core peak / 6 (fp32-exact)",
+                                bound_cuda_core_ms=bound(work, 0, device_peak_fp32_tflops())["bound_ms"])
         del timed
-        lib_fwd, lib_bwd, sdpa_leaves = sdpa_library(q, k, v, seg, dtype)
+        lib_fwd, lib_bwd, sdpa_leaves, extras = sdpa_library(q, k, v, seg, dtype, ro)
         r["fwd"]["library_ms"], r["bwd_dkdv"]["library_ms"] = lib_fwd, lib_bwd
         r["bwd_dq"]["library_ms"] = lib_bwd
-        r["library"] = ("scaled_dot_product_attention" + (" (math backend)" if dtype == torch.float32 else "")
+        r["library"] = ("scaled_dot_product_attention" + (" (math backend)" if f32 else "")
                         + " with a bool mask, k/v repeated to 32 heads; backward alone")
+        if f32:
+            eff = extras.get("library_efficient_ms")
+            for i, kname in ((0, "fwd"), (1, "bwd_dkdv"), (1, "bwd_dq")):
+                r[kname]["library_efficient_ms"] = eff[i] if eff else None
+            r.update(extras)
         if D == COVERAGE_FLEX_D:
             qt, kt, vt = sdpa_leaves
             r["fwd"].update(flex_forward(qt, kt, vt, seg, ro))
@@ -2401,6 +2470,45 @@ def coverage_gmm(dev) -> dict:
     return out
 
 
+def coverage_split(dev) -> dict:
+    """The fp32 pieces' split kernel (one launch for q, k, v and dO) bit for
+    bit against ``plain_split`` at the D = 128 coverage shapes, the inputs
+    spread over 1e-20 to 1e20 and put on bf16 rounding ties, and a planted
+    fault (the lo piece dropped: a two-piece split) the check must refuse;
+    timed beside its
+    bound (10 bytes an element) and the plain version."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    D, S = 128, TRAIN_S
+    shapes = [(TRAIN_B, S, HEADS, D), (TRAIN_B, S, COVERAGE_KV_HEADS, D), (TRAIN_B, S, COVERAGE_KV_HEADS, D),
+              (TRAIN_B, S, HEADS, D)]
+    xs = [torch.randn(sh, generator=g, device=dev) for sh in shapes]
+    spread = torch.logspace(-20, 20, xs[0].numel(), device=dev).view(shapes[0])
+    xs[0] = xs[0] * spread  # scales from 1e-20 to 1e20
+    ties = xs[3].to(BF16).float()
+    xs[3] = ties + torch.ldexp(torch.ones_like(ties), torch.frexp(ties).exponent - 9)  # bf16 value + half its ulp
+    got = pieces.split_pieces(*xs)
+    torch.cuda.synchronize()
+    want = [pieces.plain_split(x) for x in xs]
+    bitwise = [bitwise_equal(a, b) for a, b in zip(got, want)]
+    sums_back = [bitwise_equal((a[0].float() + a[1].float()) + a[2].float(), x) for a, x in zip(got, xs)]
+    planted = got[1].clone()
+    planted[2] = 0
+    refused = not bitwise_equal(planted, want[1])
+    n = sum(x.numel() for x in xs)
+    r = {"elements": n, "bitwise": bitwise, "sums_back_bitwise": sums_back, "planted_refused": refused,
+         "ms": cuda_time_ms(lambda: pieces.split_pieces(*xs)),
+         "plain_ms": cuda_time_ms(lambda: [pieces.plain_split(x) for x in xs], 1, 3),
+         **bound(0, 10 * n), "library_ms": None, "max_abs_err": 0.0 if all(bitwise) else float("nan")}
+    emit({"phase": "kernel_coverage", "case": "split_pieces fp32 -> 3 x bf16 (q, k, v, dO at D = 128)", **r})
+    if not all(bitwise) or not refused:
+        raise AssertionError(f"the split kernel differs from plain_split, or its planted fault went through: {r}")
+    # the inputs at 1e-20 have normal pieces; the sums come back exactly
+    if not all(sums_back):
+        raise AssertionError(f"the pieces do not sum back to their inputs: {sums_back}")
+    del xs, got, want
+    return r
+
+
 def phase_kernel_coverage(dev) -> dict:
     """Every splash instantiation of ``COVERAGE_DIMS`` (and the dropout
     cases) on one packed 4096-token row, then gmm/tgmm in fp16.  Returns
@@ -2431,6 +2539,7 @@ def phase_kernel_coverage(dev) -> dict:
         torch.cuda.empty_cache()
     for kname, r in coverage_gmm(dev).items():
         out[(kname, "f16", None)] = r
+    out[("split_pieces", "f32", None)] = coverage_split(dev)
     return out
 
 
@@ -2479,6 +2588,7 @@ def phase_demo_entry(dev) -> dict:
     card_s = time.perf_counter() - t0
     by_case = dict(splash.launches_by_case)
     total = kernel_counts()
+    splits = pieces.launches
     card = runs[0]
     t0 = time.perf_counter()
     cpu = run_training(DEMO_CONFIG, params=initial["params"], device="cpu")
@@ -2502,19 +2612,22 @@ def phase_demo_entry(dev) -> dict:
           "limits": {"loss_rtol": DEMO_LOSS_RTOL, "grad_norm_rtol": DEMO_GNORM_RTOL},
           "first_loss_minus_ln_vocab": lc[0] - math.log(cfg.vocab_size), "card_s": card_s, "cpu_s": cpu_s,
           "launches_by_case": {"/".join(map(str, k)): v for k, v in by_case.items()},
-          "launches_fwd_dkdv_dq_dropout_adamw": list(total), "plain_calls": plain_calls,
+          "launches_fwd_dkdv_dq_dropout_adamw": list(total), "launches_split_pieces": splits,
+          "plain_calls": plain_calls,
           "tokens_per_s_card": float(np.median([r["tgs"] for r in card["records"][1:]]))})
     if steps != 20 or {k: by_case.get(k, 0) for k in want} != want or total[4] != steps * leaves:
         raise AssertionError(f"demo: {steps} steps, launches {by_case}, adamw {total[4]}: want 20, {want}, "
                              f"{steps * leaves}")
     if any(plain_calls.values()) or set(by_case) != set(want):
         raise AssertionError(f"demo: the plain attention ran {plain_calls} or other kernels launched {by_case}")
+    if splits != 2 * steps * cfg.num_layers * micro:  # one for each forward's q, k, v and backward's q, k, v, dO
+        raise AssertionError(f"demo: {splits} split launches, want {2 * steps * cfg.num_layers * micro}")
     if not abs(lc[0] - math.log(cfg.vocab_size)) < 0.05 or not lc[-1] < lc[0]:
         raise AssertionError(f"demo losses {lc}: the first is not ln(vocab) or the loss did not fall")
     if not (max(loss_rel) <= DEMO_LOSS_RTOL and max(gnorm_rel) <= DEMO_GNORM_RTOL):
         raise AssertionError(f"demo on the card left the CPU run: losses {loss_rel}, grad norms {gnorm_rel}")
     del runs, card, cpu
-    return {"by_case": by_case, "adamw": total[4]}
+    return {"by_case": by_case, "adamw": total[4], "split": splits}
 
 
 def fp16_config(layers: int) -> Config:
@@ -2686,7 +2799,9 @@ KERNEL_REPLACES = {
     "bwd_dq": "internevo_tpu/ops/pallas/splash_attention.py:984 (_bwd_kernel_bsd), :787 (_bwd_kernel)",
     "gmm": "internevo_tpu/ops/pallas/gmm.py:122 (_gmm_kernel)",
     "gmm_dgrad": "internevo_tpu/ops/pallas/gmm.py:122 (_gmm_kernel, transpose_rhs)",
-    "tgmm": "internevo_tpu/ops/pallas/gmm.py:151 (_tgmm_kernel)"}
+    "tgmm": "internevo_tpu/ops/pallas/gmm.py:151 (_tgmm_kernel)",
+    "split_pieces": "internevo_tpu/ops/pallas/splash_attention.py:513, :528 (the f32 dots' operands, which "
+                    "the TPU's matrix unit splits itself; no TPU kernel)"}
 
 
 def coverage_entries(slice11: dict) -> list:
@@ -2702,17 +2817,23 @@ def coverage_entries(slice11: dict) -> list:
     for (kname, dt, D), r in slice11["kernel_coverage"].items():
         if (dt, D) == ("bf16", 128):
             continue
+        if kname == "split_pieces":
+            entries.append({"name": kname, "route": "triton", "source": "internevo_tpu_torch/ops/cuda/pieces.py",
+                            "replaces": KERNEL_REPLACES[kname], "launches": slice11["demo_entry"]["split"],
+                            "main_path": True, **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                                    "bound_by", "library_ms")}})
+            continue
         key = (kname, dt) if D is None else (kname, dt, D)
         launches = {f"launches_{p}": counts[key] for p, counts in paths.items() if counts.get(key)}
-        dtype = {v: k for k, v in splash.DTYPES.items()}[dt]
-        source = gmm.SOURCE if D is None else splash._sources(dtype)[kname != "fwd"]
+        source = gmm.SOURCE if D is None else splash.SOURCE if kname == "fwd" else splash.BWD_SOURCE
         name = f"{kname}_{dt}" if D is None else f"splash_attention_{kname}_{dt}_d{D}"
         entries.append({"name": name, "route": "cuda", "source": f"internevo_tpu_torch/csrc/{source}",
                         "replaces": KERNEL_REPLACES[kname], "launches": sum(launches.values()), **launches,
                         "main_path": bool(launches),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        **({"library_flex_ms": r["library_flex_ms"]} if "library_flex_ms" in r else {})})
+                        **{key: r[key] for key in ("library_flex_ms", "bound_peak", "bound_cuda_core_ms",
+                                                   "library_efficient_ms") if key in r}})
     return entries
 
 

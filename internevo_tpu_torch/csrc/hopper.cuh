@@ -171,6 +171,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
   }
 }
 
+// d (64 x 32, fp32) += A (64 x 16) @ B (16 x 32), both from shared memory;
+// each operand K-major (0) or MN-major (1).  scale_d 0 overwrites d.
+#define HOPPER_M64N32K16_SS(TY)                                                  \
+  asm volatile(                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" HOPPER_WGMMA(32, TY) "{"      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "                                   \
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"                                        \
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8)                                     \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B))
+template <int TRANS_A, int TRANS_B, typename T>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (is_f16<T>()) {
+    HOPPER_M64N32K16_SS("f16");
+  } else {
+    HOPPER_M64N32K16_SS("bf16");
+  }
+}
+
 // d (64 x 64, fp32) += A (64 x 16, 16-bit fragments in registers) @ B (16 x
 // 64, shared memory, K-major (0) or MN-major (1)).
 #define HOPPER_M64N64K16_RS(TY)                                                  \
@@ -263,6 +282,32 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
     __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
     return *reinterpret_cast<uint32_t*>(&h);
   }
+}
+
+// Two floats to T* dst: a T pair (pack2), or for float two floats.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* dst, float a, float b) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = pack2<T>(a, b);
+  }
+}
+
+// Two floats as three bf16 pairs, hi = bf16(x), mid = bf16(x - hi), lo =
+// bf16(x - hi - mid), each pair as pack2 lays it out.  The subtractions are
+// exact, and the three pieces hold x's 24 significand bits, so hi + mid + lo
+// is x wherever the pieces are normal (|x| above about 2^-110): the fp32
+// splash kernels' operands of fp32-exact products (splash.cuh, piece_a /
+// piece_b).
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  hi = pack2<bf16>(a, b);
+  float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  a = __fsub_rn(a, f.x);
+  b = __fsub_rn(b, f.y);
+  mid = pack2<bf16>(a, b);
+  f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&mid));
+  lo = pack2<bf16>(__fsub_rn(a, f.x), __fsub_rn(b, f.y));
 }
 
 // ---------------------------------------------------------------- host side

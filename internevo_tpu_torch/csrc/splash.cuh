@@ -1,7 +1,8 @@
 // What the splash-attention forward and backward share on the device: the
 // counter-hash dropout keep test (the two must draw the same bits), the
-// softmax's exp2, the per-tile loop flags and the warpgroup vote.  Included
-// by splash_attention_fwd.cu and splash_attention_bwd.cu after hopper.cuh.
+// softmax's exp2, the per-tile loop flags, the warpgroup vote, and the
+// products of fp32 operands split in three bf16 pieces.  Included by
+// splash_attention_fwd.cu and splash_attention_bwd.cu after hopper.cuh.
 
 #pragma once
 
@@ -54,6 +55,38 @@ __device__ __forceinline__ bool warpgroup_all(bool v, int cw) {
       : "r"((uint32_t)v), "r"(1 + cw)
       : "memory");
   return all != 0;
+}
+
+// fp32 operands as three bf16 pieces, x = x0 + x1 + x2 (split3, and the
+// wrapper's split_pieces for q, k, v and dO): a product a·b of fp32-exact
+// accuracy is the six terms a_i·b_j with i + j <= 2, whose bf16 products are
+// exact and whose sums are the wgmma's fp32 accumulation; the terms left
+// out (a1·b2, a2·b1, a2·b2) are below 2^-24 of a·b.  Term t of PC-piece
+// operands is (piece_a(t), piece_b(t)), smallest first: (2, 0), (1, 1),
+// (0, 2), (1, 0), (0, 1), (0, 0); one term (0, 0) for one piece.
+template <int PC>
+__host__ __device__ constexpr int n_terms() {
+  static_assert(PC == 1 || PC == 3, "one piece (bf16, f16) or three (fp32)");
+  return PC == 1 ? 1 : 6;
+}
+template <int PC>
+__host__ __device__ constexpr int piece_a(int t) {
+  return PC == 1 ? 0 : t < 3 ? 2 - t : t < 5 ? 4 - t : 0;
+}
+template <int PC>
+__host__ __device__ constexpr int piece_b(int t) {
+  return PC == 1 ? 0 : t < 3 ? t : t < 5 ? t - 3 : 0;
+}
+
+// The pair (a, b) into register fragment f[.][k][r]: packed to T for one
+// piece, split in three bf16 pieces for three.
+template <typename T, int PC, int K>
+__device__ __forceinline__ void put_pieces(uint32_t (&f)[PC][K][4], int k, int r, float a, float b) {
+  if constexpr (PC == 1) {
+    f[0][k][r] = pack2<T>(a, b);
+  } else {
+    split3(a, b, f[0][k][r], f[1][k][r], f[2][k][r]);
+  }
 }
 
 }  // namespace

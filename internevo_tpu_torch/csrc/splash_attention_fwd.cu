@@ -75,6 +75,25 @@
 // dropout_mask_dense (splash.cuh).  Kept probabilities are scaled by
 // 1/(1-rate) in the PV product only; l and lse sum the undropped
 // probabilities.  lse = m·ln2 + ln l, natural log, as the backward reads it.
+//
+// fp32 q/k/v (PC = 3 pieces).  The TPU kernel forms its dots with
+// preferred_element_type=f32, so on fp32 inputs every product is an fp32
+// product; wgmma's TF32 kind would round q and k to 10 bits.  Instead the
+// wrapper splits q, k and v into three bf16 pieces each (x = hi + mid + lo,
+// exact for normal values; split_pieces, in (3, B, S, H, d) tensors whose
+// maps index piece p of batch b as batch p·B + b), the consumers split P∘drop
+// in registers the same way (split3), and each product is the six bf16
+// terms a_i·b_j with i + j <= 2 (splash.cuh), summed in the fp32
+// accumulators: fp32-exact products at a sixth of the bf16 rate.  The body
+// is the bf16 kernel's with three changes.  Q's three pieces (96 KB for 128
+// rows at D = 128) cannot sit in registers beside O and S, so S = Q Kᵀ
+// reads them from shared memory (wgmma SS), and Q's buffer is released when
+// the item ends rather than once it is in registers.  A stage holds the six
+// pieces of a (K, V) tile pair, so the ring has 1 stage at D = 128 and 3 at
+// D = 64 (Q and the ring fill 192 KB).  A tile's P V is formed in a fresh
+// accumulator and added to O in fp32 adds: the tensor cores' accumulation
+// does not round to nearest, and O summed in place drifted from the exact
+// sums as the walk grew.  out is stored as fp32.
 
 #include "hopper.cuh"
 #include "splash.cuh"
@@ -83,7 +102,11 @@ namespace {
 
 constexpr int TILE = 64;      // kv rows of a streamed tile, q rows of a consumer; BLOCK_K in the wrapper
 constexpr int ITEM = 128;     // q rows of an item; BLOCK_Q in the wrapper
-constexpr int STAGES = 4;
+// the ring's stages of (K, V) tiles, each with PC pieces of both
+template <int D, int PC>
+__host__ __device__ constexpr int stages() {
+  return PC == 1 ? 4 : D == 128 ? 1 : 3;
+}
 constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
 constexpr float LN2 = 0.6931471805599453f;
@@ -93,7 +116,7 @@ struct Params {
   const int* q_seg;   // (B, S)   (unused when use_seg == 0)
   const int* kv_seg;  // (B, Sk)
   const int* kv_lo;   // (B, cdiv(S, 128))  first 64-row kv tile each 128-row q item visits
-  void* out;          // (B, S, Hq, d) of T
+  void* out;          // (B, S, Hq, d) of T (fp32 for three pieces)
   float* lse;         // (B, Hq, S)
   int B, S, Sk, Hq, Hkv;
   int d;              // the head dim, <= the instantiated D, a multiple of 8
@@ -114,16 +137,21 @@ struct Side {
   int n, uniform, seg0, pad;
 };
 
-// shared memory: Q (128 rows), the ring of (K, V) tiles, their Side data,
-// the barriers (the ring's full and empty, Q's full and empty, the item
-// slots' full and empty) and the two item slots, after up to 1 KB of
-// alignment
-constexpr int BARRIERS = 2 * STAGES + 6;
-template <int D>
-constexpr int smem_bytes() {
-  return (2 + 2 * STAGES) * (D / 64) * BOX + STAGES * (int)sizeof(Side) + BARRIERS * 8 + 2 * 4 + 1024;
+// shared memory: Q (128 rows, PC pieces), the ring of (K, V) tiles, their
+// Side data, the barriers (the ring's full and empty, Q's full and empty,
+// the item slots' full and empty) and the two item slots, after up to 1 KB
+// of alignment
+template <int D, int PC>
+__host__ __device__ constexpr int barriers() {
+  return 2 * stages<D, PC>() + 6;
 }
-static_assert(smem_bytes<128>() <= 232448, "the tiles fit a block's shared memory");
+template <int D, int PC>
+constexpr int smem_bytes() {
+  return (2 * PC + 2 * PC * stages<D, PC>()) * (D / 64) * BOX + stages<D, PC>() * (int)sizeof(Side) +
+         barriers<D, PC>() * 8 + 2 * 4 + 1024;
+}
+static_assert(smem_bytes<128, 1>() <= 232448 && smem_bytes<128, 3>() <= 232448 && smem_bytes<64, 3>() <= 232448,
+              "the tiles fit a block's shared memory");
 
 // an item: (q head, 128-row q tile, batch) of linear index L, heads fastest,
 // the q tiles with the longest causal walks first; its walk [lo, hi]
@@ -143,6 +171,7 @@ __device__ __forceinline__ Item decode(const Params& p, int L, int nq) {
   return it;
 }
 
+template <int STAGES>
 __device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
   if (++stage == STAGES) {
     stage = 0;
@@ -150,18 +179,22 @@ __device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
   }
 }
 
-// q, k, v: 4-D maps over (D, H, rows, B) with 64 x 1 x 64 x 1 boxes
-template <int D, typename T>
+// q, k, v: 4-D maps over (D, H, rows, PC·B) with 64 x 1 x 64 x 1 boxes; piece
+// pc of batch b at batch coordinate pc·B + b
+template <int D, typename T, int PC>
 __global__ void __launch_bounds__(THREADS, 1)
     splash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, Params p) {
-  constexpr int NB = D / 64;                 // 64-column boxes a row
-  constexpr uint32_t QBYTES = 2 * NB * BOX;  // the item's 128 q rows
-  constexpr uint32_t TBYTES = NB * BOX;      // one 64-row K or V tile
+  using OutT = typename std::conditional<PC == 1, T, float>::type;
+  constexpr int STAGES = stages<D, PC>(), BARRIERS = barriers<D, PC>();
+  constexpr int NB = D / 64;                      // 64-column boxes a row
+  constexpr uint32_t QBYTES = PC * 2 * NB * BOX;  // the item's 128 q rows, every piece
+  constexpr uint32_t TBYTES = NB * BOX;           // one piece of a 64-row K or V tile
+  constexpr uint32_t SBYTES = 2 * PC * TBYTES;    // a stage: the pieces of K, then of V
   extern __shared__ __align__(1024) unsigned char fwd_smem[];
   const uint32_t pad = (1024 - (smem_u32(fwd_smem) & 1023)) & 1023;
   const uint32_t qtile = smem_u32(fwd_smem) + pad, ring = qtile + QBYTES;
-  Side* sides = reinterpret_cast<Side*>(fwd_smem + pad + QBYTES + STAGES * 2 * TBYTES);
+  Side* sides = reinterpret_cast<Side*>(fwd_smem + pad + QBYTES + STAGES * SBYTES);
   const uint32_t bars = smem_u32(sides + STAGES);
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
@@ -207,18 +240,22 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(q_empty, qph ^ 1);
         mbar_expect_tx(q_full, QBYTES);
         qph ^= 1;
-        for (int c = 0; c < 2; ++c)  // two 64-row halves of NB boxes each
-          for (int j = 0; j < NB; ++j)
-            tma_load_4d(qtile + (c * NB + j) * BOX, &qmap, 64 * j, it.hq, it.item * ITEM + TILE * c, it.b, q_full);
+        for (int pc = 0; pc < PC; ++pc)
+          for (int c = 0; c < 2; ++c)  // two 64-row halves of NB boxes each
+            for (int j = 0; j < NB; ++j)
+              tma_load_4d(qtile + ((pc * 2 + c) * NB + j) * BOX, &qmap, 64 * j, it.hq, it.item * ITEM + TILE * c,
+                          pc * p.B + it.b, q_full);
         for (int tile = it.lo; tile <= it.hi; ++tile) {
           mbar_wait(empty(stage), phase ^ 1);
-          mbar_expect_tx(full(stage), 2 * TBYTES);
-          const uint32_t kt = ring + stage * 2 * TBYTES;
-          for (int j = 0; j < NB; ++j) {
-            tma_load_4d(kt + j * BOX, &kmap, 64 * j, hk, tile * TILE, it.b, full(stage));
-            tma_load_4d(kt + TBYTES + j * BOX, &vmap, 64 * j, hk, tile * TILE, it.b, full(stage));
-          }
-          advance(stage, phase);
+          mbar_expect_tx(full(stage), SBYTES);
+          const uint32_t kt = ring + stage * SBYTES;
+          for (int pc = 0; pc < PC; ++pc)
+            for (int j = 0; j < NB; ++j) {
+              tma_load_4d(kt + (pc * NB + j) * BOX, &kmap, 64 * j, hk, tile * TILE, pc * p.B + it.b, full(stage));
+              tma_load_4d(kt + PC * TBYTES + (pc * NB + j) * BOX, &vmap, 64 * j, hk, tile * TILE, pc * p.B + it.b,
+                          full(stage));
+            }
+          advance<STAGES>(stage, phase);
         }
       }
     } else if (warp == 1) {
@@ -270,7 +307,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             sd.seg0 = seg0;
             mbar_arrive(full(stage));  // releases lane 0's writes
           }
-          advance(stage, phase);
+          advance<STAGES>(stage, phase);
         }
       }
     }
@@ -317,34 +354,44 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};  // running max of s·scale·log2e, per row
     float l[2] = {0.f, 0.f};              // this thread's share of the running sum, per row
-    const uint32_t qa = qtile + cw * NB * BOX;
+    const uint32_t qa = qtile + cw * NB * BOX;  // piece pc at qa + pc · 2 NB BOX
     mbar_wait(q_full, qph);
     qph ^= 1;
-    // this consumer's Q rows as A fragments, loaded once (ldmatrix), as
-    // the backward's dQ kernel loads Q and dO
-    uint32_t qf[D / 16][4];
-    {
+    // one piece: this consumer's Q rows as A fragments, loaded once
+    // (ldmatrix), as the backward's dQ kernel loads Q and dO.  Three pieces
+    // stay in shared memory until the item ends
+    uint32_t qf[PC == 1 ? D / 16 : 1][4];
+    if constexpr (PC == 1) {
       const int row = 16 * warp + lane % 8 + 8 * ((lane / 8) & 1);
 #pragma unroll
       for (int k = 0; k < D / 16; ++k) {
         const int chunk = 2 * k + lane / 16;
         ldmatrix_x4(qa + (chunk / 8) * BOX + row * 128 + (((chunk % 8) ^ (row % 8)) << 4), qf[k]);
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);  // Q is in registers: the next item's may load
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(q_empty);  // Q is in registers: the next item's may load
 
     for (int tile = lo; tile <= my_hi; ++tile) {
-      const uint32_t kt = ring + stage * 2 * TBYTES, vt = kt + TBYTES;
+      const uint32_t kt = ring + stage * SBYTES, vt = kt + PC * TBYTES;  // piece pc at + pc TBYTES
       mbar_wait(full(stage), phase);
       const Side& sd = sides[stage];
 
-      // S = Q Kᵀ
+      // S = Q Kᵀ: from Q's register fragments, or the six terms of the pieces
       float s[32];
       wgmma_fence();
+      if constexpr (PC == 1) {
 #pragma unroll
-      for (int k = 0; k < D / 16; ++k)
-        wgmma_m64n64k16_rs<0, T>(s, qf[k], box_desc<false>(kt, k), k);
+        for (int k = 0; k < D / 16; ++k)
+          wgmma_m64n64k16_rs<0, T>(s, qf[k], box_desc<false>(kt, k), k);
+      } else {
+#pragma unroll
+        for (int t = 0; t < n_terms<PC>(); ++t)
+#pragma unroll
+          for (int k = 0; k < D / 16; ++k)
+            wgmma_m64n64k16_ss<0, 0, T>(s, box_desc<false>(qa + piece_a<PC>(t) * 2 * NB * BOX, k),
+                                        box_desc<false>(kt + piece_b<PC>(t) * TBYTES, k), t + k);
+      }
       wgmma_commit();
 
       // While it runs: which of this thread's 32 elements are valid and, with
@@ -382,9 +429,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_regs(s);
 
       // the online softmax on this thread's two rows, P∘drop packed into the
-      // A fragments of the k step that covers its columns, O rescaled; one
-      // loop per (masked, dropout) case
-      uint32_t pf[4][4];
+      // A fragments of the k step that covers its columns (each piece's), O
+      // rescaled; one loop per (masked, dropout) case
+      uint32_t pf[PC][4][4];
       auto softmax = [&](auto masked, auto dropped) {
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -414,7 +461,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             pd[e] = pv;
             if constexpr (decltype(dropped)::value) pd[e] = (kept >> (i + e)) & 1 ? __fmul_rn(pv, p.drop_scale) : 0.f;
           }
-          pf[i / 8][(i % 8) / 2] = pack2<T>(pd[0], pd[1]);
+          put_pieces<T, PC>(pf, i / 8, (i % 8) / 2, pd[0], pd[1]);
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
@@ -429,23 +476,51 @@ __global__ void __launch_bounds__(THREADS, 1)
         else softmax(Flag<true>(), Flag<false>());
       }
 
-      // O += (P∘drop) V
-      wgmma_fence();
+      // O += (P∘drop) V.  Three pieces: the tile's six terms in a fresh wgmma
+      // accumulator, a 64-column chunk of O at a time, added to O in fp32
+      // adds (the tensor cores' accumulation does not round to nearest: 24
+      // wgmmas a tile into O itself left out 1.9e-6 from the exact sums)
+      if constexpr (PC == 1) {
+        wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < 4; ++k) wgmma_rs<D, T>(o, pf[k], box_desc<true>(vt, k), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
+        for (int k = 0; k < 4; ++k) wgmma_rs<D, T>(o, pf[0][k], box_desc<true>(vt, k), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) fence_regs(pf[k]);
+        for (int j = 0; j < NB; ++j) {
+          float step[32];
+          wgmma_fence();
+#pragma unroll
+          for (int t = 0; t < n_terms<PC>(); ++t)
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              wgmma_m64n64k16_rs<1, T>(step, pf[piece_a<PC>(t)][k],
+                                       box_desc<true>(vt + piece_b<PC>(t) * TBYTES + j * BOX, k), t + k);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(step);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[32 * j + i] += step[i];  // registers 32 j.. are chunk j's columns
+        }
+      }
+#pragma unroll
+      for (int pc = 0; pc < PC; ++pc)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) fence_regs(pf[pc][k]);
       if (lane == 0) mbar_arrive(empty(stage));
-      advance(stage, phase);
+      advance<STAGES>(stage, phase);
     }
     // the item's tiles past this consumer's rows: released unread
     for (int tile = max(lo, my_hi + 1); tile <= hi; ++tile) {
       mbar_wait(full(stage), phase);
       if (lane == 0) mbar_arrive(empty(stage));
-      advance(stage, phase);
+      advance<STAGES>(stage, phase);
+    }
+    if constexpr (PC > 1) {  // Q's pieces are read: the next item's may load
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);
     }
 
     // rows rloc and rloc + 8 of this consumer: out = O / l (0 where l = 0),
@@ -457,11 +532,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int r = row_base + rloc + 8 * h;
       if (r >= p.S) continue;
       const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
-      T* dst = static_cast<T*>(p.out) + (((size_t)b * p.S + r) * p.Hq + hq) * p.d;
+      OutT* dst = static_cast<OutT*>(p.out) + (((size_t)b * p.S + r) * p.Hq + hq) * p.d;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + 2 * (lane % 4), i = 4 * j + 2 * h;
-        if (8 * j < p.d) *reinterpret_cast<uint32_t*>(dst + col) = pack2<T>(o[i] * inv, o[i + 1] * inv);
+        if (8 * j < p.d) store_pair(dst + col, o[i] * inv, o[i + 1] * inv);
       }
       if (lane % 4 == 0)
         p.lse[((size_t)b * p.Hq + hq) * p.S + r] = l[h] == 0.f ? -INFINITY : m[h] * LN2 + logf(l[h]);
@@ -471,10 +546,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ---------------------------------------------------------------- host side
 
-template <int D, typename T>
+template <int D, typename T, int PC>
 cudaError_t launch(const CUtensorMap (&maps)[3], const Params& p, int B, cudaStream_t stream) {
-  const void* fn = (const void*)splash_fwd_kernel<D, T>;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+  const void* fn = (const void*)splash_fwd_kernel<D, T, PC>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D, PC>());
   if (err != cudaSuccess) return err;
   CUtensorMap q = maps[0], k = maps[1], v = maps[2];
   Params pp = p;
@@ -486,19 +561,20 @@ cudaError_t launch(const CUtensorMap (&maps)[3], const Params& p, int B, cudaStr
     return err;
   const int n_items = p.Hq * ((p.S + ITEM - 1) / ITEM) * B;
   const dim3 grid(min(n_items, sms));
-  err = cudaLaunchKernel(fn, grid, dim3(THREADS), args, smem_bytes<D>(), stream);
+  err = cudaLaunchKernel(fn, grid, dim3(THREADS), args, smem_bytes<D, PC>(), stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T>
+// q, k, v: T, or for PC = 3 the bf16 pieces (3, B, S, H, D) of fp32 tensors
+template <typename T, int PC>
 int run(const void* q, const void* k, const void* v, const int* q_seg, const int* kv_seg, const int* kv_lo,
         void* out, float* lse, int* next_item, int B, int S, int Sk, int Hq, int Hkv, int D, float scale_log2,
         int causal, int use_seg, int dropout, unsigned int keep_thresh, float drop_scale, unsigned int seed0,
         unsigned int row0, unsigned int col0, unsigned int head0, unsigned int batch0, void* stream) {
   if (B <= 0 || S <= 0 || Sk <= 0 || D <= 0 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
-  const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)Hq, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)Sk, (cuuint64_t)B};
+  const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)Hq, (cuuint64_t)S, (cuuint64_t)(PC * B)};
+  const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)Sk, (cuuint64_t)(PC * B)};
   const cuuint32_t box[4] = {64, 1, TILE, 1};
   if (!encode<T>(&maps[0], q, 4, q_dims, box) || !encode<T>(&maps[1], k, 4, kv_dims, box) ||
       !encode<T>(&maps[2], v, 4, kv_dims, box))
@@ -528,7 +604,7 @@ int run(const void* q, const void* k, const void* v, const int* q_seg, const int
   p.head0 = head0;
   p.batch0 = batch0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D > 64 ? launch<128, T>(maps, p, B, s) : launch<64, T>(maps, p, B, s));
+  return (int)(D > 64 ? launch<128, T, PC>(maps, p, B, s) : launch<64, T, PC>(maps, p, B, s));
 }
 
 }  // namespace
@@ -537,7 +613,8 @@ int run(const void* q, const void* k, const void* v, const int* q_seg, const int
 // signature.  Each returns a cudaError_t; 0 is success.  The wrapper
 // (ops/cuda/splash_attention.py) checks shapes: contiguous 16-byte aligned
 // operands of the entry's type, Hq a multiple of Hkv, D <= 128 a multiple
-// of 8.
+// of 8.  The fp32 entry takes q, k and v as their bf16 pieces (3, B, S, H,
+// D) and writes an fp32 out.
 #define SPLASH_FWD_ARGS                                                                                      \
   const void *q, const void *k, const void *v, const int *q_seg, const int *kv_seg, const int *kv_lo,        \
       void *out, float *lse, int *next_item, int B, int S, int Sk, int Hq, int Hkv, int D, float scale_log2, \
@@ -547,6 +624,8 @@ int run(const void* q, const void* k, const void* v, const int* q_seg, const int
   q, k, v, q_seg, kv_seg, kv_lo, out, lse, next_item, B, S, Sk, Hq, Hkv, D, scale_log2, causal, use_seg, dropout, \
       keep_thresh, drop_scale, seed0, row0, col0, head0, batch0, stream
 
-extern "C" int splash_attention_fwd_bf16(SPLASH_FWD_ARGS) { return run<bf16>(SPLASH_FWD_CALL); }
+extern "C" int splash_attention_fwd_bf16(SPLASH_FWD_ARGS) { return run<bf16, 1>(SPLASH_FWD_CALL); }
 
-extern "C" int splash_attention_fwd_f16(SPLASH_FWD_ARGS) { return run<f16>(SPLASH_FWD_CALL); }
+extern "C" int splash_attention_fwd_f16(SPLASH_FWD_ARGS) { return run<f16, 1>(SPLASH_FWD_CALL); }
+
+extern "C" int splash_attention_fwd_f32(SPLASH_FWD_ARGS) { return run<bf16, 3>(SPLASH_FWD_CALL); }

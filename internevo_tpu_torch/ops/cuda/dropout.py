@@ -12,10 +12,12 @@ masked to 32 bits), would cost ~10 ms a (4096, 4096) mask on the card.
 The kernel does the whole map in one pass: each element's threefry counter
 is its flat index (``core/random.py``), the 32 bits become JAX's float32
 uniform and the keep test, and the element is scaled or zeroed and stored.
-Its bound is the bytes of h read once and the output written once; the
-hash adds 74 integer operations an element (2 adds, 20 rounds of add,
-rotate and xor, 5 key injections of 2 adds, then the xor and shift of the
-bits), for which the card's data sheet gives no peak rate.  The divisor is ``1 - rate`` rounded to h's dtype,
+Its bound is the larger of the bytes of h read once and the output
+written once, and the hash's 74 integer operations an element
+(``HASH_INT_OPS``: 2 adds, 20 rounds of add, rotate and xor, 5 key
+injections of 2 adds, then the xor and shift of the bits) at the card's
+INT32 rate, SMs x 64 lanes x SM clock, which the data sheet does not
+list.  The divisor is ``1 - rate`` rounded to h's dtype,
 as JAX converts the Python float; the quotient is the IEEE float32 quotient
 (``div_rn``) rounded once to h's dtype, as XLA computes a bf16 division.
 
@@ -32,6 +34,8 @@ from ...core import random as jrandom
 
 BLOCK = 1024      # elements per program
 NUM_WARPS = 4
+
+HASH_INT_OPS = 74  # integer operations of one element's hash (module docstring)
 
 launches = 0      # kernel launches; the plain version never counts
 _compiled = None  # the @triton.jit function, made on first launch

@@ -11,13 +11,15 @@ v (``splash_attention_with_lse`` in its lse too, as the JAX ``custom_vjp``).
 Dispatch is on the tensors' device and nothing else: CPU tensors run the
 plain versions (``plain_forward`` / ``plain_backward``, dense torch over a
 materialised score tensor), CUDA tensors launch a kernel or raise.  On the
-card the dtype picks the kernels: bf16 and fp16 q/k/v go to the wgmma
-kernels, ``csrc/splash_attention_fwd.cu`` forward and
-``csrc/splash_attention_bwd.cu`` backward; fp32 goes to the CUDA-core
-kernels of ``csrc/splash_attention_f32.cu`` (full fp32 products, as the TPU
-kernel forms on fp32 inputs).  Every head dim up to 128 that is a multiple
-of 8 is taken; a larger one, or one that TMA's 16-byte strides cannot
-address, is refused.  Inside a recomputed layer (``core/remat.py``) the
+card every dtype runs the wgmma kernels, ``csrc/splash_attention_fwd.cu``
+forward and ``csrc/splash_attention_bwd.cu`` backward.  bf16 and fp16 q/k/v
+are their operands as they are.  fp32 keeps full fp32 products, as the TPU
+kernel forms on fp32 inputs: ``pieces.split_pieces`` splits q, k, v (and
+dO) into three bf16 pieces whose sum is each value exactly, and the
+kernels' fp32 instantiations sum the six bf16 products of the pieces that
+fp32 accuracy needs (``pieces.TERMS``) in fp32.  Every head dim up to 128
+that is a multiple of 8 is taken; a larger one, or one that TMA's 16-byte
+strides cannot address, is refused.  Inside a recomputed layer (``core/remat.py``) the
 forward's (out, lse) are kept from the first forward (``remat.FLASH``), so
 the recompute hands them to the backward without launching the forward
 kernel again.
@@ -42,11 +44,11 @@ import torch
 
 from ...core import remat
 from .build import load
+from .pieces import split_pieces
 
 LOG2E = 1.4426950408889634
 SOURCE = "splash_attention_fwd.cu"
 BWD_SOURCE = "splash_attention_bwd.cu"
-F32_SOURCE = "splash_attention_f32.cu"
 # the kernels' dtypes: the suffix of each one's C entry points
 DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 MAX_HEAD_DIM = 128
@@ -59,9 +61,9 @@ BLOCK_K = 64
 # kv tiles from kv_lo (TILE and ITEM in its source)
 BWD_DKDV_BLOCKS = (64, 128)
 BWD_DQ_BLOCKS = (128, 64)
-# the fp32 kernels' blocks: 64-row items walk 64-row tiles, forward and both
-# backward kernels (ROWS in their source)
-F32_BLOCKS = (64, 64)
+# the fp32 backward's blocks: both kernels' 64-row items walk 64-row tiles
+# (item_rows<3> and TILE in its source); the fp32 forward's are the forward's
+F32_BWD_BLOCKS = (64, 64)
 # plain version: the largest (B, heads, S, Sk) score slab materialised at once
 _PLAIN_SLAB_ELEMS = 1 << 28
 
@@ -364,11 +366,6 @@ def _dropout_args(dropout_rate, dropout_seed):
     return [1, _keep_thresh(dropout_rate), float(1.0 / (1.0 - dropout_rate))] + _seed_u32(dropout_seed)
 
 
-def _sources(dtype) -> tuple[str, str]:
-    """(forward source, backward source) of the kernels that take ``dtype``."""
-    return (F32_SOURCE, F32_SOURCE) if dtype == torch.float32 else (SOURCE, BWD_SOURCE)
-
-
 def _count(kernel: str, q) -> None:
     launches_by_case[(kernel, DTYPES[q.dtype], q.shape[-1])] += 1
 
@@ -376,7 +373,7 @@ def _count(kernel: str, q) -> None:
 def _kernel_fn(dtype):
     """The forward's C entry point for ``dtype``, built and loaded on first
     use, with its ctypes signature (one for every dtype)."""
-    fn = getattr(load(_sources(dtype)[0]), f"splash_attention_fwd_{DTYPES[dtype]}")
+    fn = getattr(load(SOURCE), f"splash_attention_fwd_{DTYPES[dtype]}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
@@ -388,7 +385,7 @@ def _kernel_fn(dtype):
 def _bwd_fn(name: str, dtype):
     """A backward C entry point (``splash_attention_bwd_{dkdv,dq}_<dtype>``;
     one signature), built and loaded on first use."""
-    fn = getattr(load(_sources(dtype)[1]), f"{name}_{DTYPES[dtype]}")
+    fn = getattr(load(BWD_SOURCE), f"{name}_{DTYPES[dtype]}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
@@ -400,17 +397,17 @@ def _bwd_fn(name: str, dtype):
 class ForwardCall:
     """The prepared operands of one forward (control data, outputs, the
     persistent blocks' item counter, the argument list); ``launch`` launches
-    the kernel on them (the kernel zeroes the counter first)."""
+    the kernel on them (the kernel zeroes the counter first), fp32 q/k/v
+    split into their pieces first."""
 
     def __init__(self, q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_kv, dropout_rate,
                  dropout_seed):
         _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids)
-        load(_sources(q.dtype)[0])  # built before any work: a machine without the toolkit fails here
+        load(SOURCE)  # built before any work: a machine without the toolkit fails here
         B, S, Hq, D = q.shape
         Sk, Hkv = k.shape[1], k.shape[2]
         # its control data: kv_lo alone, at the forward's blocks
-        blocks = F32_BLOCKS if q.dtype == torch.float32 else (BLOCK_Q, BLOCK_K)
-        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, blocks)
+        self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv, (BLOCK_Q, BLOCK_K))
         self.out = torch.empty_like(q)
         self.lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
         self.next_item = torch.empty(1, dtype=torch.int32, device=q.device)
@@ -424,7 +421,11 @@ class ForwardCall:
         global launches
         fn = _kernel_fn(self.dtype)
         with torch.cuda.device(self.device):
-            err = fn(*self.args, torch.cuda.current_stream(self.device).cuda_stream)
+            args = self.args
+            if self.dtype == torch.float32:
+                self.pieces = split_pieces(*self.inputs)
+                args = [t.data_ptr() for t in self.pieces] + args[3:]
+            err = fn(*args, torch.cuda.current_stream(self.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"splash_attention_fwd launch failed: cudaError {err}")
         launches += 1
@@ -442,13 +443,14 @@ def _kernel_forward(q, k, v, segment_ids, kv_segment_ids, scale, causal, cross_k
 class BackwardCall:
     """The prepared operands of one backward: delta = rowsum(dO∘O) − dlse in
     plain torch (as the JAX package computes it in XLA), the control data, the
-    outputs, and the argument list both kernels take.  ``launch_dkdv`` and
-    ``launch_dq`` launch the two kernels on it."""
+    outputs, and the argument list both kernels take, with fp32 q, k, v and
+    dO as their pieces (``split``).  ``launch_dkdv`` and ``launch_dq``
+    launch the two kernels on it."""
 
     def __init__(self, q, k, v, out, lse, do, dlse, segment_ids, kv_segment_ids, scale, causal,
                  cross_kv, dropout_rate, dropout_seed):
         _check_cuda_inputs(q, k, v, segment_ids, kv_segment_ids)
-        load(_sources(q.dtype)[1])  # built before any work: a machine without the toolkit fails here
+        load(BWD_SOURCE)  # built before any work: a machine without the toolkit fails here
         B, S, Hq, D = q.shape
         Sk, Hkv = k.shape[1], k.shape[2]
         do = do.contiguous()  # the cotangent through reshape/out_proj need not be
@@ -465,7 +467,8 @@ class BackwardCall:
         self.delta = delta.contiguous()
         f32 = q.dtype == torch.float32
         self.segs = _segment_args(q, k, segment_ids, kv_segment_ids, cross_kv,
-                                  F32_BLOCKS if f32 else BWD_DQ_BLOCKS, F32_BLOCKS if f32 else BWD_DKDV_BLOCKS)
+                                  F32_BWD_BLOCKS if f32 else BWD_DQ_BLOCKS,
+                                  F32_BWD_BLOCKS if f32 else BWD_DKDV_BLOCKS)
         self.do = do
         self.dq, self.dk, self.dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         self.device, self.dtype = q.device, q.dtype
@@ -474,6 +477,13 @@ class BackwardCall:
         self.args = ptrs + [B, S, Sk, Hq, Hkv, D, float(scale), float(scale * LOG2E), int(causal),
                             int(segment_ids is not None), *_dropout_args(dropout_rate, dropout_seed)]
         self.inputs = (q, k, v, lse)  # kept alive while the kernels may read them
+        if f32:
+            self.split()
+
+    def split(self) -> None:
+        """fp32: q, k, v and dO as their pieces, the kernels' operands."""
+        self.pieces = split_pieces(*self.inputs[:3], self.do)
+        self.args[:4] = [t.data_ptr() for t in self.pieces]
 
     def _launch(self, name: str) -> None:
         fn = _bwd_fn(name, self.dtype)

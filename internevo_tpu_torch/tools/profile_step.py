@@ -81,7 +81,7 @@ MOE_TYPE = "MegaBlock-D"
 # kernel classes, first match of a name fragment wins ("tgmm_kernel" holds
 # "gmm_kernel", and none of the three holds "gemm")
 CLASSES = (
-    ("splash_f32", ("splash_f32_",)),
+    ("split_pieces", ("split_kernel",)),
     ("splash_fwd", ("splash_fwd_kernel",)),
     ("splash_bwd_dkdv", ("splash_bwd_dkdv_kernel",)),
     ("splash_bwd_dq", ("splash_bwd_dq_kernel",)),

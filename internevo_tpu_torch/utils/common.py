@@ -43,7 +43,8 @@ def get_megatron_flops(
 # no sparsity).
 GPU_PEAK_TFLOPS = {"H100": 989.0}
 GPU_PEAK_BYTES_PER_S = {"H100": 3.35e12}
-# fp32 FMAs outside the tensor cores (the fp32 splash kernels' rate)
+# fp32 FMAs outside the tensor cores (the CUDA-core bound kept beside the
+# fp32 splash kernels' tensor-core one)
 GPU_PEAK_FP32_TFLOPS = {"H100": 67.0}
 
 
@@ -64,6 +65,18 @@ def device_peak_tflops(device_name: str | None = None) -> float:
 def device_peak_fp32_tflops(device_name: str | None = None) -> float:
     """fp32 peak of the named card's CUDA cores (default: CUDA device 0)."""
     return _lookup(GPU_PEAK_FP32_TFLOPS, "fp32 peak", device_name)
+
+
+# the bf16 products a fp32-exact product of three-piece operands takes
+# (ops/cuda/pieces.py, TERMS)
+FP32_EXACT_TERMS = 6
+
+
+def device_peak_fp32_exact_tflops(device_name: str | None = None) -> float:
+    """fp32-exact peak of the named card's tensor cores: the bf16 dense peak
+    over the six bf16 products of three bf16 pieces an operand (the fp32
+    splash kernels' rate)."""
+    return device_peak_tflops(device_name) / FP32_EXACT_TERMS
 
 
 def device_peak_bandwidth(device_name: str | None = None) -> float:

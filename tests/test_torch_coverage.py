@@ -190,8 +190,8 @@ def test_gmm_guard_refuses_other_outputs_and_dims():
 
 
 def test_fp32_peak_table():
-    """The fp32 kernels' bounds use the CUDA cores' fp32 rate, not the
-    tensor cores' (NVIDIA's H100 SXM data sheet)."""
+    """The CUDA cores' fp32 rate, which the fp32 kernels' CUDA-core bound
+    beside their tensor-core bound uses (NVIDIA's H100 SXM data sheet)."""
     assert device_peak_fp32_tflops("NVIDIA H100 80GB HBM3") == 67.0
     with pytest.raises(KeyError, match="fp32 peak"):
         device_peak_fp32_tflops("NVIDIA A100-SXM4-80GB")
